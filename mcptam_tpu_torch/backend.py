@@ -1,0 +1,27 @@
+"""Kernel launch counters.
+
+Each kernel wrapper adds one to its counter where it launches its CUDA
+kernel, and nowhere else: a CPU tensor that takes the plain version counts
+nothing.  A run can therefore show which kernels its main path really went
+through — the reference's ``kernel_report`` (mcptam_tpu/backend.py) only
+reports which tier a dispatch site *would* take.
+"""
+
+from __future__ import annotations
+
+# kernel name -> launches since the last reset; one plain integer per wrapper
+LAUNCHES = {
+    "fast_frontend": 0,   # ops/fast_kernel.py, csrc/fast.cu
+    "gather_windows": 0,  # ops/gather_kernel.py, csrc/gather.cu
+    "esm_align_all": 0,   # ops/sbi_kernel.py, csrc/esm.cu
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def kernel_report() -> dict:
+    """Launch count of every kernel since the last reset."""
+    return dict(LAUNCHES)

@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface for Hopper (``sm_90a``), at first use, into
+``mcptam_tpu_torch/_build/``.  The library's file name carries a hash of
+the sources and flags, so a changed source builds anew.  It is loaded with
+ctypes; every pointer and the stream travel as ``c_void_p``.
+
+Nothing is built or loaded at import time: the CPU tests import every
+module of the port on a machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent
+BUILD_DIR = CSRC.parent / "_build"
+SOURCES = ("common.cu", "fast.cu", "gather.cu", "esm.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types; each returns a cudaError_t as int
+ENTRY_POINTS = {
+    "mcptam_fast_frontend": [_P] * 6 + [_I] * 3 + [_P],
+    "mcptam_gather_windows_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "mcptam_gather_windows_u8": [_P] * 4 + [_I] * 4 + [_P],
+    "mcptam_esm_align_all": [_P] * 6 + [_I] * 2 + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libmcptam_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """Compile the library unless this source hash is already built.
+    Returns (path, compiler log); the log holds ptxas' register and
+    shared-memory report of every kernel, empty when nothing was built."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.mcptam_error_string.argtypes = [ctypes.c_int]
+            lib.mcptam_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = load().mcptam_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's tracking slice spends its time on one GPU.
+
+    python3 scripts/profile_torch_slice.py [--frames 16]
+
+Builds the scene of chip_smoke.py (4-camera 480x640 rig, ground-truth map
+with 2048 point slots, default TrackerConfig) on the card, warms the
+System over one batch, then reports:
+  * per-stage times of single frames, each stage ended by a device
+    synchronise (features, sbi, motion, pvs, coarse, fine, pose,
+    finalize, stats + add heuristic);
+  * a torch.profiler window over --frames frames of process_frames:
+    the top operators by device time, device kernels launched per frame,
+    and the device-busy share of the window (summed kernel time over wall
+    time; one stream, so kernels do not overlap).
+Needs a CUDA device; prints the card and its power limit beside every
+number.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402  (scene constants and trajectory)
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=16)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: needs a CUDA device", file=sys.stderr)
+        return 1
+
+    from mcptam_tpu_torch.config import TrackerConfig
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import (
+        build_groundtruth_map, make_rig, make_sbi_cams, render_rig,
+    )
+    from mcptam_tpu_torch.map.keyframe import make_frame_features
+    from mcptam_tpu_torch.map.mapmaker_core import need_new_mkf
+    from mcptam_tpu_torch.system.system import System
+    from mcptam_tpu_torch.tracker import tracker as T
+
+    card = cs.card_line()
+    dev = torch.device("cuda:0")
+    cams, cfb = make_rig(cs.C, cs.H, cs.W, spread_deg=25.0, device=dev)
+    cams_sbi = make_sbi_cams(cams, cs.H, cs.W)
+    ms, _ = build_groundtruth_map(
+        cams, cfb, cs.H, cs.W, n_per_level=cs.N_PER_LEVEL,
+        max_points=cs.MAX_POINTS, max_mkfs=cs.MAX_MKFS, max_meas=cs.MAX_MEAS)
+    frames = [torch.clamp(render_rig(
+        cams, cfb, SE3.exp(torch.tensor(cs.traj_tangent(i), dtype=torch.float32,
+                                        device=dev)),
+        cs.SEED, cs.H, cs.W), 0, 255).to(torch.uint8)
+        for i in range(cs.N_POSES)]
+    tcfg = TrackerConfig()
+    sys_ = System(cams, cfb, cams_sbi, cs.H, cs.W, tcfg=tcfg,
+                  max_points=cs.MAX_POINTS, max_mkfs=cs.MAX_MKFS,
+                  max_meas=cs.MAX_MEAS)
+    sys_.ms, sys_.initialized = ms, True
+    sys_.vars["AddingMKFs"] = False
+    sys_.process_frames(torch.stack(frames[:cs.B]))   # warm-up batch
+    torch.cuda.synchronize()
+
+    # ---- per-stage times, one synchronise per stage
+    stages = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stages.setdefault(name, []).append((t1 - t0) * 1e3)
+        return t1
+
+    ts, ca = sys_.ts, torch.ones(cs.C, dtype=torch.bool, device=dev)
+    for i in range(cs.B, 2 * cs.B):
+        t0 = time.perf_counter()
+        feats = make_frame_features(frames[i])
+        t0 = lap("features", t0)
+        rot, have = T._stage_sbi(ts, feats, cams_sbi, ms.cam_from_base, tcfg, ca)
+        t0 = lap("sbi", t0)
+        pred = T._stage_motion(ts, rot, have)
+        t0 = lap("motion", t0)
+        pvs = T._stage_pvs(ms, cams, pred, ca)
+        t0 = lap("pvs", t0)
+        pac, do_c = T._stage_coarse(ms, cams, feats, pvs, pred, tcfg)
+        t0 = lap("coarse", t0)
+        fine = T._stage_fine(ms, cams, feats, pvs, pac, do_c, tcfg)
+        t0 = lap("fine", t0)
+        pose, cov, outl = T._stage_pose(ms, cams, pac, fine, tcfg)
+        t0 = lap("pose", t0)
+        ts, res = T._stage_finalize(ts, ms, feats, pose, cov, fine, outl, rot,
+                                    tcfg, ca)
+        t0 = lap("finalize", t0)
+        T.apply_tracker_point_stats(ms, res, enable=~res.lost)
+        need_new_mkf(ms, res.pose, torch.mean(res.mean_depth))
+        lap("stats+add", t0)
+    total = sum(np.mean(v) for v in stages.values())
+    print(f"per-stage ms/frame (mean of {cs.B} frames, synchronised) on {card}:")
+    for name, v in stages.items():
+        print(f"  {name:10s} {np.mean(v):9.3f} ms  {100 * np.mean(v) / total:5.1f}%")
+    print(f"  {'total':10s} {total:9.3f} ms")
+
+    # ---- profiler window over process_frames
+    batches = [torch.stack(frames[j:j + cs.B])
+               for j in range(2 * cs.B, 2 * cs.B + args.frames, cs.B)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            sys_.process_frames(b)
+        sys_.flush_pipeline()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_frames = len(batches) * cs.B
+    events = prof.key_averages()
+    # device-side rows (kernels, memcpy, memset); the CPU-op rows carry the
+    # same time again as their children's
+    on_dev = [e for e in events if e.device_type.name == "CUDA"]
+    dev_us = sum(e.self_device_time_total for e in on_dev)
+    kernels = sum(e.count for e in on_dev)
+    print(f"profiled window: {n_frames} frames in {wall * 1e3:.1f} ms wall "
+          f"({n_frames / wall:.2f} frames/s under the profiler) on {card}")
+    print(f"device busy {dev_us / 1e3:.1f} ms = {100 * dev_us / 1e6 / wall:.1f}% "
+          f"of the window; {kernels / n_frames:.0f} device ops per frame")
+    print(events.table(sort_by="self_device_time_total", row_limit=30,
+                       max_name_column_width=60))
+    print(events.table(sort_by="self_cpu_time_total", row_limit=15,
+                       max_name_column_width=60))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
