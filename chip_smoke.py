@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tracking path once on one NVIDIA GPU.
+"""Drive the PyTorch port's tracking and mapping paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,12 +7,26 @@ Phases, each fatal on failure:
   1. device: require CUDA; print the card and its power limit;
   2. build the CUDA kernels from mcptam_tpu_torch/csrc (timed);
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the tracking path gives it, with the tolerance stated, timed
-     beside the plain version;
-  4. the slice: render the 4-camera 480x640 rig and build the ground-truth
-     map on the card, then run System.process_frames over the 128-pose
-     benchmark trajectory in batches of 8 with the benchmark's quality
-     gates, counting kernel launches; then a second, timed pass.
+     shapes its path gives it, with the tolerance stated, timed beside the
+     plain version: FAST, the window gather and ESM on tracking shapes,
+     both SPD Cholesky solves at n = 96 and 288 on random SPD matrices and
+     on the reduced camera system of one LM step of phase 5's problem;
+  4. the tracking slice: render the 4-camera 480x640 rig and build the
+     ground-truth map on the card, then run System.process_frames over
+     the 128-pose benchmark trajectory in batches of 8 with the
+     benchmark's quality gates, counting kernel launches; then a second,
+     timed pass;
+  5. LM: the benchmark's global bundle problem (16 poses, 2048 points,
+     8192 measurements), LM iterations/s over 6 chunks of 10, the
+     noiseless fidelity problem (mean reprojection error < 1e-3 px after
+     100 iterations), and the timed problem again on the unblocked
+     Cholesky kernel;
+  6. mapping: System.process_frames with the map-maker ticking (ba_chunk
+     4, a tick every 2nd batch), a warm-up of 88 frames that walks the rig
+     0.3 m sideways and back so that keyframes are added and integrated,
+     then the timed 128-pose trajectory with the benchmark's gates (ATE
+     included), at least one MKF integrated and one BA finished with
+     accepted steps.
 
 Prints one JSON line of kernel results, the card line, and last the line
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
@@ -37,6 +51,19 @@ N_POSES = 128
 B = 8
 SEED = 3.0
 ESM_TOL = 3e-5  # the reference's own kernel-vs-XLA bar on se2
+# SPD solves: max |x - x_plain| / max |x_plain|, both in f32.  1e-3 bounds
+# kappa * 2^-24 at the random matrices' condition number 1e4; a worse
+# conditioned Schur matrix gets 8 kappa 2^-24 (kappa measured in f64)
+SPD_TOL = 1e-3
+# the damped Schur matrix is ill-conditioned (kappa ~1e7), so there the
+# kernel is held to the plain solver's backward error instead:
+# ||A x - b||_inf / (||A||_inf ||x||_inf + ||b||_inf) <= SPD_BACKWARD_TOL,
+# a few n * 2^-24 at n = 96
+SPD_BACKWARD_TOL = 2e-5
+MIN_FOUND, MAX_POSE_ERR, MAX_ATE = 100.0, 0.05, 0.02   # bench.py's gates
+BA_CHUNK, TICK_EVERY = 4, 2   # the benchmark's map-maker deployment
+N_WARMUP, EXCURSION_M = 88, 0.3
+LM_COST_TOL = 1e-2  # K5 vs K4 final LM cost: the accept path may differ by f32 rounding
 
 KERNELS = {
     "fast_frontend": ("mcptam_tpu_torch/csrc/fast.cu",
@@ -45,6 +72,10 @@ KERNELS = {
                        "mcptam_tpu/ops/pallas_gather.py:26"),
     "esm_align_all": ("mcptam_tpu_torch/csrc/esm.cu",
                       "mcptam_tpu/ops/sbi_pallas.py:85"),
+    "spd_solve_blocked": ("mcptam_tpu_torch/csrc/spd.cu",
+                          "mcptam_tpu/core/spd.py:99"),
+    "spd_solve_simple": ("mcptam_tpu_torch/csrc/spd.cu",
+                         "mcptam_tpu/core/spd.py:33"),
 }
 
 
@@ -56,6 +87,14 @@ def traj_tangent(i: int) -> list:
         0.0040 * np.sin(a + 1.3), 0.0030 * np.cos(2 * a),
         0.0030 * np.sin(3 * a + 0.5),
     ]
+
+
+def excursion_tangent(i: int) -> list:
+    """Warm-up pose i of phase 6: the trajectory pose plus a sideways
+    excursion of up to EXCURSION_M that returns to it at frame N_WARMUP."""
+    v = traj_tangent(i)
+    v[0] += EXCURSION_M * np.sin(np.pi * i / N_WARMUP)
+    return v
 
 
 def card_line() -> str:
@@ -149,6 +188,258 @@ def check_esm(feats_prev, feats_cur):
     return err, ms, plain_ms
 
 
+def lm_problem(dev, noise=0.3):
+    """bench_lm's global case: 16 poses, 2048 points, 8192 sparse
+    measurements, 4 cameras, D sized from the data; no edge dropped."""
+    from mcptam_tpu_torch.ba.bundle import attach_obs_table, max_obs_per_point
+    from mcptam_tpu_torch.ba.problems import build
+    from mcptam_tpu_torch.system.mapmaker import _bucket
+
+    prob, cams = build(n_poses=16, n_points=2048, n_cams=4, sparse_k=8192,
+                       noise=noise, device=dev)
+    D = _bucket(max(int(max_obs_per_point(prob)), 1), (8, 16, 24, 32, 48, 64))
+    prob = attach_obs_table(prob, D)
+    dropped = int(prob.obs_dropped)
+    if dropped != 0:
+        raise AssertionError(f"obs table D={D} dropped {dropped} measurements")
+    return prob, cams
+
+
+def schur_system(prob, cams):
+    """The damped reduced camera system (Sf, b) of the first LM step."""
+    from mcptam_tpu_torch.ba import bundle
+
+    got, orig = {}, bundle.spd_solve
+
+    def grab(A, b):
+        got["A"], got["b"] = A.clone(), b.clone()
+        return orig(A, b)
+
+    bundle.spd_solve = grab
+    try:
+        bundle.lm_step(prob, bundle.create_lm_state(prob), cams, fixed_b=True)
+    finally:
+        bundle.spd_solve = orig
+    return got["A"], got["b"]
+
+
+def random_spd(n: int, gen, dev):
+    """Symmetric positive definite (n,n) f32 with condition number 1e4."""
+    import torch
+    Q, _ = torch.linalg.qr(torch.randn(n, n, generator=gen, dtype=torch.float64))
+    A = (Q * torch.logspace(0, 4, n, dtype=torch.float64)) @ Q.T
+    return (0.5 * (A + A.T)).to(torch.float32).to(dev)
+
+
+def backward_error(A, x, b) -> float:
+    """Normwise backward error of a solve, in f64."""
+    A, x, b = A.double(), x.double(), b.double()
+    r = (A @ x - b).abs().max().item()
+    return r / (A.abs().sum(1).max().item() * x.abs().max().item()
+                + b.abs().max().item())
+
+
+def check_spd(sf, sf_b, gen):
+    """K4 and K5 against the plain solve at n = 96 and 288 (m = 1) on
+    random SPD, and at n = 96 on phase 5's Schur matrix.  Returns
+    {kernel: (max_abs_err, ms at n=96, plain ms at n=96)}."""
+    import torch
+    from mcptam_tpu_torch.core.spd import spd_solve_kernel, spd_solve_reference
+
+    dev = sf.device
+    cases = []
+    for n in (96, 288):
+        cases.append((f"random n={n}", random_spd(n, gen, dev),
+                      torch.randn(n, 1, generator=gen).to(dev)))
+    cases.append((f"schur n={sf.shape[0]}", sf.contiguous(),
+                  sf_b.reshape(-1, 1).contiguous()))
+    out = {}
+    for blocked, kname in ((True, "spd_solve_blocked"), (False, "spd_solve_simple")):
+        err_abs, times = 0.0, {}
+        for label, A, b in cases:
+            x = spd_solve_kernel(A, b, blocked)
+            x_plain = spd_solve_reference(A, b)
+            torch.cuda.synchronize()
+            kappa = float(torch.linalg.cond(A.double()))
+            d = (x - x_plain).abs().max().item()
+            rel = d / max(x_plain.abs().max().item(), 1e-30)
+            bwd = backward_error(A, x, b)
+            ok = rel <= SPD_TOL if label.startswith("random") else bwd <= SPD_BACKWARD_TOL
+            if not (torch.isfinite(x).all() and ok):
+                raise AssertionError(f"{kname} {label}: relative error {rel}, backward "
+                                     f"error {bwd} (plain {backward_error(A, x_plain, b)}), "
+                                     f"kappa {kappa:.3g}")
+            err_abs = max(err_abs, d)
+            if label.startswith("random"):
+                times[A.shape[0]] = (time_ms(lambda: spd_solve_kernel(A, b, blocked)),
+                                     time_ms(lambda: spd_solve_reference(A, b)))
+            print(f"  {kname} {label}: rel err vs plain {rel:.3g}, backward error "
+                  f"{bwd:.3g} (plain {backward_error(A, x_plain, b):.3g}), kappa {kappa:.3g}")
+        for n, (k_ms, p_ms) in times.items():
+            print(f"  {kname} n={n} m=1: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
+        out[kname] = (err_abs, times[96][0], times[96][1])
+    return out
+
+
+def phase_lm(dev, card):
+    """Phase 5.  Returns the spd_solve_simple launches of the K5 run."""
+    import torch
+    from mcptam_tpu_torch import backend
+    from mcptam_tpu_torch.ba.bundle import (
+        _residuals_and_jacobians, create_lm_state, lm_run,
+    )
+
+    prob, cams = lm_problem(dev)
+
+    def run(st):
+        return lm_run(prob, st, cams, 10, fixed_b=True)
+
+    st = create_lm_state(prob)
+    for _ in range(2):                      # warm-up
+        st = run(st)
+    torch.cuda.synchronize()
+    st = create_lm_state(prob)
+    t0 = time.perf_counter()
+    for _ in range(6):
+        st = run(st)
+    cost_blocked = float(st.cost)           # host read ends the window
+    dt = time.perf_counter() - t0
+    print(f"lm: {60 / dt:.2f} LM iterations/s ({dt * 1e3 / 60:.3f} ms/iteration, "
+          f"16 poses, 2048 points, {prob.m_valid.shape[0]} measurements, "
+          f"D={prob.obs_idx.shape[1]}, accepted {int(st.accepted)}/"
+          f"{int(st.iterations)}, cost {cost_blocked:.6g}) on {card}")
+
+    # fidelity: 100 iterations on the noiseless problem, same shapes
+    probf, camsf = lm_problem(dev, noise=0.0)
+    stf = create_lm_state(probf)
+    for _ in range(10):
+        stf = lm_run(probf, stf, camsf, 10, fixed_b=True)
+    e, _, _, _, ok = _residuals_and_jacobians(probf, stf.pose_a, stf.pose_b,
+                                              stf.points, camsf)
+    fid = float(torch.sum(torch.linalg.vector_norm(e, dim=-1) * ok)
+                / torch.clamp(torch.sum(ok), min=1))
+    print(f"lm fidelity: mean reprojection error {fid:.3e} px over "
+          f"{int(ok.sum())} measurements after 100 iterations")
+    if not fid < 1e-3:
+        raise AssertionError(f"LM fidelity {fid} px >= 1e-3 px")
+
+    # the timed problem once more on the unblocked kernel (K5)
+    os.environ["MCPTAM_SPD_KERNEL"] = "simple"
+    try:
+        backend.reset_launch_counts()
+        st_s = create_lm_state(prob)
+        for _ in range(6):
+            st_s = lm_run(prob, st_s, cams, 10, fixed_b=True)
+        cost_simple = float(st_s.cost)
+        launches = backend.kernel_report()["spd_solve_simple"]
+    finally:
+        os.environ.pop("MCPTAM_SPD_KERNEL")
+    rel = abs(cost_simple - cost_blocked) / max(abs(cost_blocked), 1e-30)
+    print(f"lm on spd_solve_simple: cost {cost_simple:.6g} vs blocked "
+          f"{cost_blocked:.6g} (rel {rel:.3g}, tol {LM_COST_TOL}), "
+          f"{launches} launches")
+    if not rel <= LM_COST_TOL or launches <= 0:
+        raise AssertionError("the K5 LM run disagrees or never launched K5")
+    return launches
+
+
+def phase_mapping(cams, cfb, cams_sbi, frames, poses, card):
+    """Phase 6.  Returns the launch counts of the mapping run."""
+    import torch
+    from mcptam_tpu_torch import backend
+    from mcptam_tpu_torch.config import MapMakerConfig, TrackerConfig
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import build_groundtruth_map, render_rig
+    from mcptam_tpu_torch.map.state import count_mkfs, count_points
+    from mcptam_tpu_torch.system.evaluate import ate_rmse
+    from mcptam_tpu_torch.system.mapmaker import MM_RUNNING, MapMaker
+    from mcptam_tpu_torch.system.system import System
+
+    dev = cfb.t.device
+    ms, _ = build_groundtruth_map(
+        cams, cfb, H, W, n_per_level=N_PER_LEVEL, max_points=MAX_POINTS,
+        max_mkfs=MAX_MKFS, max_meas=MAX_MEAS)
+    warm = [torch.clamp(render_rig(cams, cfb, SE3.exp(torch.tensor(
+        excursion_tangent(i), dtype=torch.float32, device=dev)), SEED, H, W),
+        0, 255).to(torch.uint8) for i in range(N_WARMUP)]
+    mm = MapMaker(cams=cams, mcfg=MapMakerConfig(), ba_chunk=BA_CHUNK)
+    sys_ = System(cams, cfb, cams_sbi, H, W, tcfg=TrackerConfig(),
+                  mcfg=MapMakerConfig(), max_points=MAX_POINTS,
+                  max_mkfs=MAX_MKFS, max_meas=MAX_MEAS, mapmaker=mm,
+                  pipeline_depth=2 * B)
+    sys_.ms, sys_.initialized = ms, True
+    sys_.vars["AddingMKFs"] = True
+    mm.state = MM_RUNNING
+    sys_.tick_every = TICK_EVERY
+    torch.cuda.synchronize()
+
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    warm_infos = []
+    for i in range(0, N_WARMUP, B):
+        warm_infos += sys_.process_frames(torch.stack(warm[i:i + B]))
+    warm_infos += sys_.flush_pipeline()
+    torch.cuda.synchronize()
+    n_added = sum(i.added_mkf for i in warm_infos)
+    print(f"mapping warm-up: {N_WARMUP} frames in {time.perf_counter() - t0:.2f} s, "
+          f"{n_added} MKFs added, map {int(count_mkfs(sys_.ms))} MKFs / "
+          f"{int(count_points(sys_.ms))} points, BA {mm.ba_log}")
+
+    # timed: one full trajectory period, continuing from the warm-up
+    mm._idle_ticks = 1
+    mm.on_map_changed()
+    cursor, by_fid = N_WARMUP, {}
+    t0 = time.perf_counter()
+    while cursor < N_WARMUP + N_POSES:
+        for info in sys_.process_frames(torch.stack(
+                [frames[(cursor + j) % N_POSES] for j in range(B)])):
+            by_fid[info.frame_id] = info
+        cursor += B
+    for info in sys_.flush_pipeline():
+        by_fid[info.frame_id] = info
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_ba_timed = len(mm.ba_log)
+    # then let the map-maker finish what it started (untimed)
+    for _ in range(200):
+        if (not mm.queue and mm._ba_kind == "none" and mm._local_done
+                and mm._global_done):
+            break
+        sys_.ms = mm.step(sys_.ms)
+    torch.cuda.synchronize()
+    launches = backend.kernel_report()
+
+    infos = [by_fid[f] for f in sorted(by_fid)]
+    if [i.frame_id for i in infos] != list(range(N_WARMUP, N_WARMUP + N_POSES)):
+        raise AssertionError("mapping: drained frame ids out of order")
+    errs = pose_errors(infos, poses)
+    gt34 = [np.concatenate([poses[i.frame_id % N_POSES][0],
+                            poses[i.frame_id % N_POSES][1][:, None]], 1)
+            for i in infos]
+    ate = ate_rmse(np.stack([i.pose for i in infos]), np.stack(gt34))["rmse"]
+    mean_found = float(np.mean([i.n_found for i in infos]))
+    n_mkfs = int(count_mkfs(sys_.ms))
+    print(f"mapping timed pass: {N_POSES / dt:.2f} frames/s "
+          f"({dt * 1e3 / N_POSES:.3f} ms/frame, B={B}, ba_chunk={BA_CHUNK}, "
+          f"tick_every={TICK_EVERY}) on {card}; mean_found {mean_found:.1f}, "
+          f"max_pose_err {max(errs):.6f}, ATE {ate:.3e} m; map {n_mkfs} MKFs / "
+          f"{int(count_points(sys_.ms))} points; BA runs (kind, accepted, "
+          f"iterations) {mm.ba_log}, {n_ba_timed} finished in the timed window; "
+          f"launches {launches}")
+    if mean_found < MIN_FOUND or max(errs) >= MAX_POSE_ERR or not ate < MAX_ATE:
+        raise AssertionError(f"mapping gates failed: mean_found {mean_found} "
+                             f"(>= {MIN_FOUND}), max_pose_err {max(errs)} "
+                             f"(< {MAX_POSE_ERR}), ATE {ate} (< {MAX_ATE})")
+    if n_mkfs < 2:
+        raise AssertionError("mapping: no MKF was integrated")
+    if not any(acc > 0 for _, acc, _ in mm.ba_log):
+        raise AssertionError(f"mapping: no BA finished with accepted steps: {mm.ba_log}")
+    for k in ("fast_frontend", "gather_windows", "esm_align_all", "spd_solve_blocked"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the mapping path")
+    return launches
+
+
 def pose_errors(infos, poses):
     """Per-frame pose error (rotation angle (+) translation), as the
     benchmark's max_pose_err; frame i maps to trajectory pose i % N_POSES."""
@@ -223,6 +514,7 @@ def main() -> int:
         "gather_windows": check_gather(feats0, ms.mkfs.atlas, gen),
         "esm_align_all": check_esm(make_frame_features(frames[0]), feats1),
     }
+    results.update(check_spd(*schur_system(*lm_problem(dev)), gen))
     for k, (err, ms_k, ms_p) in results.items():
         print(f"kernel {k}: max_abs_err {err} kernel {ms_k:.4f} ms "
               f"plain {ms_p:.4f} ms ({card})")
@@ -256,12 +548,12 @@ def main() -> int:
     if not all(np.isfinite(i.pose).all() and np.isfinite(i.cov_raw).all()
                for i in infos):
         raise AssertionError("non-finite pose or covariance")
-    if mean_found < 100 or max_err >= 0.05:
+    if mean_found < MIN_FOUND or max_err >= MAX_POSE_ERR:
         raise AssertionError(f"quality gates failed: mean_found {mean_found} "
-                             f"(>= 100), max_pose_err {max_err} (< 0.05)")
-    for k in KERNELS:
+                             f"(>= {MIN_FOUND}), max_pose_err {max_err} (< {MAX_POSE_ERR})")
+    for k in ("fast_frontend", "gather_windows", "esm_align_all"):
         if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} never launched on the main path")
+            raise AssertionError(f"kernel {k} never launched on the tracking path")
 
     # second pass over the closed trajectory, timed after the warm first
     t0 = time.perf_counter()
@@ -272,11 +564,18 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     max_err2 = float(np.max(pose_errors(infos2, poses)))
-    if max_err2 >= 0.05:
+    if max_err2 >= MAX_POSE_ERR:
         raise AssertionError(f"second pass max_pose_err {max_err2}")
     print(f"slice timed pass: {N_POSES / dt:.2f} frames/s "
           f"({dt * 1e3 / N_POSES:.3f} ms/frame, B={B}, max_pose_err "
           f"{max_err2:.6f}) on {card}")
+
+    # ---- 5. LM on the benchmark's global problem; K5's path
+    launches_k5 = phase_lm(dev, card)
+
+    # ---- 6. mapping: process_frames with the map-maker ticking
+    launches = phase_mapping(cams, cfb, cams_sbi, frames, poses, card)
+    launches["spd_solve_simple"] = launches_k5
 
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

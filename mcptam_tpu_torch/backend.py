@@ -14,6 +14,8 @@ LAUNCHES = {
     "fast_frontend": 0,   # ops/fast_kernel.py, csrc/fast.cu
     "gather_windows": 0,  # ops/gather_kernel.py, csrc/gather.cu
     "esm_align_all": 0,   # ops/sbi_kernel.py, csrc/esm.cu
+    "spd_solve_blocked": 0,  # core/spd.py, csrc/spd.cu (K4)
+    "spd_solve_simple": 0,   # core/spd.py, csrc/spd.cu (K5)
 }
 
 

@@ -2,13 +2,13 @@
 
 The ``*_from_numpy`` functions take the JAX package's pytrees with numpy
 leaves — what ``jax.device_get`` returns for an ``SE3``, ``CameraModel``,
-``MapState``, ``TrackerState`` or ``FrameFeatures``, or nested dicts and
-tuples of ``np.ndarray`` with the same field names — and build the port's
-dataclasses on a device.  ``to_numpy`` goes back to nested dicts of numpy
-arrays for comparison.  The map, cameras and tracker state are this
-system's "weights": converted, both packages compute the same thing.
-Fields the port does not carry (the map-maker's refind bookkeeping) are
-ignored.
+``MapState``, ``TrackerState``, ``FrameFeatures``, ``BundleProblem`` or
+``LMState``, or nested dicts and tuples of ``np.ndarray`` with the same
+field names — and build the port's dataclasses on a device.  A field that
+is None (an unset optional of a bundle problem) stays None.  ``to_numpy``
+goes back to nested dicts of numpy arrays for comparison.  The map,
+cameras and tracker state are this system's "weights": converted, both
+packages compute the same thing.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import typing
 import numpy as np
 import torch
 
+from mcptam_tpu_torch.ba.bundle import BundleProblem, LMState
 from mcptam_tpu_torch.core.camera import CameraModel
 from mcptam_tpu_torch.core.se3 import SE3
 from mcptam_tpu_torch.map.keyframe import FrameFeatures
@@ -40,7 +41,9 @@ def _from(cls, src, device):
     for f in dataclasses.fields(cls):
         val = _get(src, f.name)
         kind = hints[f.name]
-        if dataclasses.is_dataclass(kind):
+        if val is None:
+            kw[f.name] = None
+        elif dataclasses.is_dataclass(kind):
             kw[f.name] = _from(kind, val, device)
         elif isinstance(val, (tuple, list)):
             kw[f.name] = tuple(_tensor(v, device) for v in val)
@@ -67,6 +70,14 @@ def tracker_state_from_numpy(src, device="cpu") -> TrackerState:
 
 def frame_features_from_numpy(src, device="cpu") -> FrameFeatures:
     return _from(FrameFeatures, src, device)
+
+
+def bundle_problem_from_numpy(src, device="cpu") -> BundleProblem:
+    return _from(BundleProblem, src, device)
+
+
+def lm_state_from_numpy(src, device="cpu") -> LMState:
+    return _from(LMState, src, device)
 
 
 def to_numpy(obj):

@@ -205,3 +205,110 @@ def cam_sphere_deriv(v3: torch.Tensor):
         zero,
     ], -1)
     return d_theta, d_phi
+
+
+def project_jacobian_point(cam: CameraModel, v3: torch.Tensor) -> torch.Tensor:
+    """Full (...,2,3) d(uv)/d(v3_cam): the two derivatives above chained."""
+    duv = projection_derivs_sphere(cam, v3)
+    d_theta, d_phi = cam_sphere_deriv(v3)
+    return torch.einsum("...ij,...jk->...ik", duv, torch.stack([d_theta, d_phi], -2))
+
+
+# ---------------------------------------------------------------------------
+# Scalar-component variants for the bundle-adjustment hot path: every
+# per-measurement quantity a flat (N,) tensor, lists standing in for the
+# small fixed dims (the reference's layout, kept so the two packages
+# compute the same expressions in the same order).
+# ---------------------------------------------------------------------------
+
+def camera_soa(cam: CameraModel, idx: torch.Tensor) -> dict:
+    """Per-measurement camera parameters as flat component tensors; cam
+    carries a leading camera axis, idx is the (N,) camera index."""
+    idx = idx.long()
+
+    def g(t):
+        return t[idx]
+
+    return {
+        "inv_poly": [g(cam.inv_poly[..., i]) for i in range(cam.inv_poly.shape[-1])],
+        "poly": [g(cam.poly[..., i]) for i in range(cam.poly.shape[-1])],
+        "pdm": [g(cam.poly_deriv_mod[..., i])
+                for i in range(cam.poly_deriv_mod.shape[-1])],
+        "theta_mean": g(cam.theta_mean),
+        "theta_std": g(cam.theta_std),
+        "min_theta": g(cam.min_theta),
+        "cx": g(cam.center[..., 0]),
+        "cy": g(cam.center[..., 1]),
+        "a00": g(cam.affine[..., 0, 0]),
+        "a01": g(cam.affine[..., 0, 1]),
+        "a10": g(cam.affine[..., 1, 0]),
+        "a11": g(cam.affine[..., 1, 1]),
+        "wm1": g(cam.image_size[..., 0]) - 1.0,
+        "hm1": g(cam.image_size[..., 1]) - 1.0,
+    }
+
+
+def _horner_soa(coeffs: list, x: torch.Tensor) -> torch.Tensor:
+    val = torch.zeros_like(x)
+    for i in range(len(coeffs) - 1, 0, -1):
+        val = (val + coeffs[i]) * x
+    return val + coeffs[0]
+
+
+def project_chain_soa(camf: dict, x, y, z, with_derivs: bool = True):
+    """Projection and, with_derivs, the derivative chain d uv / d p_cam as
+    a 2x3 nested list (ref EdgeChainMeas::linearizeOplus,
+    src/ChainBundle.cc:449-749).  Returns a dict with u, v, ok[, duv]."""
+    n2 = x * x + y * y
+    norm = torch.sqrt(n2)
+    theta = torch.atan2(z, norm)
+    fov_ok = theta >= camf["min_theta"]
+    rho = _horner_soa(camf["inv_poly"], (theta - camf["theta_mean"]) / camf["theta_std"])
+
+    zero_n = norm == 0
+    one = torch.ones_like(norm)
+    zero = torch.zeros_like(norm)
+    norm_safe = torch.where(zero_n, one, norm)
+    cos_phi = torch.where(zero_n, zero, x / norm_safe)
+    sin_phi = torch.where(zero_n, zero, y / norm_safe)
+    rho = torch.where(zero_n, zero, rho)
+
+    ux = cos_phi * rho
+    uy = sin_phi * rho
+    u = camf["a00"] * ux + camf["a01"] * uy + camf["cx"]
+    v = camf["a10"] * ux + camf["a11"] * uy + camf["cy"]
+    ok = fov_ok & (u >= 0) & (v >= 0) & (u < camf["wm1"]) & (v < camf["hm1"])
+    out = {"u": u, "v": v, "ok": ok}
+    if not with_derivs:
+        return out
+
+    w_ = _horner_soa(camf["poly"], rho)
+    denom = _horner_soa(camf["pdm"], rho)
+    drho = (rho * rho + w_ * w_) / torch.where(denom == 0, one, denom)
+    # duv2 = affine @ [[c*drho, -s*rho], [s*drho, c*rho]]
+    d00 = camf["a00"] * cos_phi * drho + camf["a01"] * sin_phi * drho
+    d01 = -camf["a00"] * sin_phi * rho + camf["a01"] * cos_phi * rho
+    d10 = camf["a10"] * cos_phi * drho + camf["a11"] * sin_phi * drho
+    d11 = -camf["a10"] * sin_phi * rho + camf["a11"] * cos_phi * rho
+
+    # sphere coordinate derivatives (GetCamSphereDeriv)
+    z2 = z * z
+    n3dn = norm * n2 + norm * z2
+    dn_safe = torch.where(n3dn == 0, one, n3dn)
+    r2 = n2 + z2
+    dth = [
+        torch.where(zero_n, zero, -z * x / dn_safe),
+        torch.where(zero_n, zero, -z * y / dn_safe),
+        torch.where(zero_n, zero, norm / torch.where(r2 == 0, one, r2)),
+    ]
+    n2_safe = torch.where(zero_n, one, n2)
+    dph = [
+        torch.where(zero_n, zero, -y / n2_safe),
+        torch.where(zero_n, zero, x / n2_safe),
+        zero,
+    ]
+    out["duv"] = [
+        [d00 * dth[l] + d01 * dph[l] for l in range(3)],
+        [d10 * dth[l] + d11 * dph[l] for l in range(3)],
+    ]
+    return out

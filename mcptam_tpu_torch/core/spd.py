@@ -1,0 +1,80 @@
+"""Dense SPD solves sized for the reduced (Schur) pose system (port of
+mcptam_tpu/core/spd.py).
+
+``spd_solve`` on a CUDA tensor launches the hand-written Cholesky kernel
+``csrc/spd.cu``: the blocked variant (K4) by default, the unblocked one
+(K5) under ``MCPTAM_SPD_KERNEL=simple``, as the reference picks its Pallas
+kernel.  On a CPU tensor it takes ``spd_solve_reference``, the stock solver,
+as the reference does off the TPU.  The kernel keeps the packed factor in
+one block's shared memory and raises on a system too large for it.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from mcptam_tpu_torch import backend
+
+MAX_SHARED_BYTES = 232448  # 227 KB: the most shared memory one block may use
+
+
+def shared_bytes(n: int, m: int) -> int:
+    """Shared memory the kernel needs: the pivot scale (padded to 16 B),
+    the packed factor and the rhs."""
+    return 4 * (4 + n * (n + 1) // 2 + n * m)
+
+
+def kernel_name() -> str:
+    """The kernel ``MCPTAM_SPD_KERNEL`` selects: blocked (default) or simple."""
+    kind = os.environ.get("MCPTAM_SPD_KERNEL", "blocked")
+    return "spd_solve_blocked" if kind == "blocked" else "spd_solve_simple"
+
+
+def spd_solve_reference(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Plain version: the stock dense solver."""
+    return torch.linalg.solve(A, B)
+
+
+def spd_solve_kernel(A: torch.Tensor, B: torch.Tensor,
+                     blocked: bool = True) -> torch.Tensor:
+    """(n,n) SPD A (its upper triangle is read) and (n,m) B, f32 CUDA
+    tensors -> X (n,m) through csrc/spd.cu."""
+    if A.device.type != "cuda" or B.device != A.device:
+        raise ValueError(f"spd_solve_kernel: CUDA tensors on one device, got "
+                         f"{A.device} and {B.device}")
+    if A.dtype != torch.float32 or B.dtype != torch.float32:
+        raise ValueError(f"spd_solve_kernel takes float32, got {A.dtype}, {B.dtype}")
+    if not (A.is_contiguous() and B.is_contiguous()):
+        raise ValueError("spd_solve_kernel takes contiguous tensors")
+    n = A.shape[0]
+    if A.shape != (n, n) or B.ndim != 2 or B.shape[0] != n:
+        raise ValueError(f"spd_solve_kernel: bad shapes {tuple(A.shape)}, "
+                         f"{tuple(B.shape)}")
+    m = B.shape[1]
+    if n == 0 or m == 0 or shared_bytes(n, m) > MAX_SHARED_BYTES:
+        raise ValueError(f"spd_solve_kernel: n={n}, m={m} needs "
+                         f"{shared_bytes(n, m)} B of shared memory, above "
+                         f"the {MAX_SHARED_BYTES} B a block may use")
+    from mcptam_tpu_torch.csrc._build import check, load
+
+    X = torch.empty((n, m), dtype=torch.float32, device=A.device)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    err = load().mcptam_spd_solve(A.data_ptr(), B.data_ptr(), X.data_ptr(),
+                                  n, m, int(blocked), stream)
+    check(err, "spd_solve")
+    backend.LAUNCHES["spd_solve_blocked" if blocked else "spd_solve_simple"] += 1
+    return X
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve the dense SPD system ``A x = b`` (b may be (n,) or (n, m))."""
+    vec = b.ndim == 1
+    B = b[:, None] if vec else b
+    if A.device.type == "cpu":
+        X = spd_solve_reference(A, B)
+    else:
+        X = spd_solve_kernel(A.contiguous(), B.contiguous(),
+                             blocked=kernel_name() == "spd_solve_blocked")
+    return X[:, 0] if vec else X

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("common.cu", "fast.cu", "gather.cu", "esm.cu")
+SOURCES = ("common.cu", "fast.cu", "gather.cu", "esm.cu", "spd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,7 @@ ENTRY_POINTS = {
     "mcptam_gather_windows_f32": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_gather_windows_u8": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_esm_align_all": [_P] * 6 + [_I] * 2 + [_P],
+    "mcptam_spd_solve": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

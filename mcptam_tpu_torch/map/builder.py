@@ -54,9 +54,13 @@ def commit_mkf(ms: MapState, feats: FrameFeatures, base_from_world: SE3,
 
 def _masked_scatter(arr, slot, ok, val):
     """arr[slot[i]] = val[i] for the placed items only.  Unplaced items
-    share slot 0 of the free list with the first placed one; writing only
-    the placed items keeps the result independent of scatter order."""
-    arr[slot[ok]] = val[ok].to(arr.dtype)
+    share slot 0 of the free list with the first placed one; they write
+    to a dump row past the end instead, so the result is independent of
+    scatter order and no host sync picks the placed items."""
+    n = arr.shape[0]
+    ext = torch.cat([arr, arr[:1]])
+    ext[torch.where(ok, slot.to(torch.int64), n)] = val.to(arr.dtype)
+    arr.copy_(ext[:n])
 
 
 def add_points(ms: MapState, cams: CameraModel, mkf_idx, cam_idx, level,

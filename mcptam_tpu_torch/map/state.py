@@ -4,12 +4,13 @@ of mcptam_tpu/map/state.py, ref src/Map.cc, MapPoint.h, KeyFrame.h).
 A point, multi-keyframe (MKF) or measurement is a slot; ``valid`` masks
 replace liveness.  Capacities are fixed at construction, so shapes never
 depend on data.  Keyframe imagery is stored as uint8 pyramid atlases.
-The map-maker's refind bookkeeping (``no_retry``, ``retry_queue``) joins
-with the map-maker.
+The map-maker's refind bookkeeping (``no_retry``, ``retry_queue``) replaces
+the reference's never-retry sets and failure queue.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -97,6 +98,24 @@ class MapState:
     meas: MeasArrays
     cam_from_base: SE3    # (C,) rig extrinsics
     next_seq: torch.Tensor  # () int32
+    # per-(KF, point) refind bookkeeping (MapMakerData::spNeverRetryKFs and
+    # mlFailureQueue, src/MapMakerServerBase.cc:921-1003,1063-1080,1198-1247)
+    no_retry: torch.Tensor     # (M,C,N) pair failed a refind: never again
+    retry_queue: torch.Tensor  # (M,C,N) outlier pair awaiting a 2nd chance
+
+
+def clone_tree(obj):
+    """Deep copy of a dataclass tree of tensors (a MapState before a
+    speculative integration, which updates its argument in place)."""
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: clone_tree(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, tuple):
+        return tuple(clone_tree(v) for v in obj)
+    return obj
 
 
 def create_map_state(H: int, W: int, n_cams: int, cam_from_base: SE3,
@@ -140,6 +159,7 @@ def create_map_state(H: int, W: int, n_cams: int, cam_from_base: SE3,
         cam_from_base=SE3(R=cam_from_base.R.to(device).clone(),
                           t=cam_from_base.t.to(device).clone()),
         next_seq=z((), i32),
+        no_retry=z((M, C, N), b), retry_queue=z((M, C, N), b),
     )
 
 
@@ -263,6 +283,69 @@ def closest_mkf_distance(ms: MapState, pose: SE3, mean_depth):
                      torch.arange(M, device=ms.mkfs.valid.device))
     d = torch.where(ms.mkfs.valid, d, torch.full_like(d, float("inf")))
     return torch.min(d), torch.argmin(d)
+
+
+def point_depths_in_kf(ms: MapState, mkf_idx, cam_idx):
+    """Depths (norm of the camera-frame position) of every point in the
+    keyframe (mkf_idx, cam_idx), and the camera-frame positions."""
+    kcw = kf_cam_from_world(ms)
+    pose = SE3(R=kcw.R[mkf_idx, cam_idx], t=kcw.t[mkf_idx, cam_idx])
+    p_c = pose.apply(ms.points.pos_w)
+    return torch.linalg.vector_norm(p_c, dim=-1), p_c
+
+
+def kf_distance_table(ms: MapState, mkf_idx, cam_idx):
+    """(M,C) depth-aware distances from keyframe (mkf_idx, cam_idx) to
+    every keyframe slot (KeyFrame::Distance, src/KeyFrame.cc:715-747):
+    |camPos diff| + 0.5 |meanDepthPoint diff|, each keyframe contributing
+    the point at its own scene depth on its optical axis."""
+    frac = 0.5  # sdDistanceMeanDiffFraction default
+    inv = kf_cam_from_world(ms).inv()
+    pos = inv.t                                      # (M,C,3) camera centres
+    depth = ms.mkfs.scene_depth_mean
+    z = torch.zeros_like(depth)
+    dpt = inv.apply(torch.stack([z, z, depth], -1))  # (M,C,3)
+    d_cam = torch.linalg.vector_norm(pos - pos[mkf_idx, cam_idx], dim=-1)
+    d_mean = torch.linalg.vector_norm(dpt - dpt[mkf_idx, cam_idx], dim=-1)
+    return d_cam + frac * d_mean
+
+
+def closest_kf(ms: MapState, mkf_idx, cam_idx, region: str):
+    """Closest valid keyframe to (mkf_idx, cam_idx) within a region
+    (MapMakerBase::ClosestKeyFrame, src/MapMakerBase.cc:90-151): 'other' =
+    keyframes of every other MKF, 'self' = sibling keyframes of the same
+    MKF.  Returns (tgt_mkf, tgt_cam, found), device scalars."""
+    M = ms.mkfs.capacity
+    C = ms.cam_from_base.t.shape[0]
+    dev = ms.mkfs.valid.device
+    d = kf_distance_table(ms, mkf_idx, cam_idx)
+    ok = ms.mkfs.valid[:, None] & ms.mkfs.kf_valid
+    same_mkf = torch.arange(M, device=dev)[:, None] == mkf_idx
+    same_cam = torch.arange(C, device=dev)[None, :] == cam_idx
+    if region == "other":
+        ok = ok & ~same_mkf
+    elif region == "self":
+        ok = ok & same_mkf & ~same_cam
+    else:
+        ok = ok & ~(same_mkf & same_cam)
+    d = torch.where(ok, d, torch.full_like(d, float("inf"))).reshape(-1)
+    flat = torch.argmin(d)  # first minimum, as jnp.argmin
+    return ((flat // C).to(torch.int32), (flat % C).to(torch.int32),
+            torch.isfinite(d[flat]))
+
+
+def move_bad_points_to_trash(ms: MapState) -> MapState:
+    """Clear bad points and their measurements (Map::MoveBadPointsToTrash
+    + EmptyTrash in one step); freed slots drop their refind bookkeeping.
+    Updates ms in place."""
+    bad = ms.points.bad
+    ms.points.valid = ms.points.valid & ~bad
+    ms.meas.valid = ms.meas.valid & ~bad[ms.meas.point.long()]
+    ms.points.bad = torch.zeros_like(bad)
+    keep = ~bad[None, None, :]
+    ms.no_retry = ms.no_retry & keep
+    ms.retry_queue = ms.retry_queue & keep
+    return ms
 
 
 def count_points(ms: MapState):

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's tracking slice spends its time on one GPU.
+"""Where the PyTorch port's tracking slice and map-maker spend their time
+on one GPU.
 
     python3 scripts/profile_torch_slice.py [--frames 16]
 
@@ -12,7 +13,16 @@ System over one batch, then reports:
   * a torch.profiler window over --frames frames of process_frames:
     the top operators by device time, device kernels launched per frame,
     and the device-busy share of the window (summed kernel time over wall
-    time; one stream, so kernels do not overlap).
+    time; one stream, so kernels do not overlap);
+  * the map-maker: chip_smoke.py's mapping warm-up (the rig walks 0.3 m
+    sideways and back, keyframes are added and integrated) with every
+    scheduler tick timed to a device synchronise and sorted by what it
+    did (integrate, BA start, BA chunk, BA finish, idle GC and refinds);
+    local BA runs from 2 MKFs here (recent_min_size 2; the default 8
+    would need a longer walk);
+  * a profiler window over 10 LM steps of chip_smoke.py's LM problem (16
+    poses, 2048 points, 8192 measurements): device ops per LM step and
+    the device-busy share.
 Needs a CUDA device; prints the card and its power limit beside every
 number.
 """
@@ -136,6 +146,136 @@ def main() -> int:
                        max_name_column_width=60))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15,
                        max_name_column_width=60))
+
+    profile_mapmaker(cams, cfb, cams_sbi, card)
+    profile_lm(dev, card)
+    return 0
+
+
+def _device_share(prof, wall):
+    """(device-busy ms, device ops) of a profiler window."""
+    on_dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return (sum(e.self_device_time_total for e in on_dev) / 1e3,
+            sum(e.count for e in on_dev))
+
+
+def profile_mapmaker(cams, cfb, cams_sbi, card):
+    """Every map-maker tick of the mapping warm-up, timed and classified."""
+    import torch
+    from mcptam_tpu_torch.config import BundleConfig, MapMakerConfig, TrackerConfig
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import build_groundtruth_map, render_rig
+    from mcptam_tpu_torch.system.mapmaker import MM_RUNNING, MapMaker
+    from mcptam_tpu_torch.system.system import System
+
+    dev = cfb.t.device
+    ms, _ = build_groundtruth_map(
+        cams, cfb, cs.H, cs.W, n_per_level=cs.N_PER_LEVEL,
+        max_points=cs.MAX_POINTS, max_mkfs=cs.MAX_MKFS, max_meas=cs.MAX_MEAS)
+    warm = [torch.clamp(render_rig(cams, cfb, SE3.exp(torch.tensor(
+        cs.excursion_tangent(i), dtype=torch.float32, device=dev)), cs.SEED,
+        cs.H, cs.W), 0, 255).to(torch.uint8) for i in range(cs.N_WARMUP)]
+    mm = MapMaker(cams=cams, mcfg=MapMakerConfig(),
+                  bcfg=BundleConfig(recent_min_size=2), ba_chunk=cs.BA_CHUNK)
+    sys_ = System(cams, cfb, cams_sbi, cs.H, cs.W, tcfg=TrackerConfig(),
+                  max_points=cs.MAX_POINTS, max_mkfs=cs.MAX_MKFS,
+                  max_meas=cs.MAX_MEAS, mapmaker=mm, pipeline_depth=2 * cs.B)
+    sys_.ms, sys_.initialized = ms, True
+    mm.state = MM_RUNNING
+    sys_.tick_every = cs.TICK_EVERY
+
+    ticks, nested = {}, []
+    tick = mm._tick
+
+    def timed_tick(ms_):
+        if nested:                       # _tick's own retry: part of the outer tick
+            return tick(ms_)
+        nested.append(1)
+        kind0, queued = mm._ba_kind, bool(mm.queue)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tick(ms_)
+        torch.cuda.synchronize()
+        nested.clear()
+        dt = (time.perf_counter() - t0) * 1e3
+        kind1 = mm._ba_kind
+        if queued:
+            name = "integrate MKF"
+        elif kind0 == "none" and kind1 != "none":
+            name = f"{kind1} BA start + chunk"
+        elif kind0 != "none" and kind1 == kind0:
+            name = f"{kind0} BA chunk"
+        elif kind0 != "none":
+            name = f"{kind0} BA chunk + finish"
+        elif mm._idle_ticks % 20 in (0, 10):
+            name = "idle GC + refind sweep"
+        else:
+            name = "idle GC"
+        ticks.setdefault(name, []).append(dt)
+        return out
+
+    mm._tick = timed_tick
+    t0 = time.perf_counter()
+    for i in range(0, cs.N_WARMUP, cs.B):
+        sys_.process_frames(torch.stack(warm[i:i + cs.B]))
+    sys_.flush_pipeline()
+    for _ in range(120):                 # run the BA work to its end
+        if (not mm.queue and mm._ba_kind == "none" and mm._local_done
+                and mm._global_done):
+            break
+        sys_.ms = mm.step(sys_.ms)
+    for _ in range(20):                  # idle: GC, one general refind sweep
+        sys_.ms = mm.step(sys_.ms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"map-maker ticks of the mapping warm-up ({cs.N_WARMUP} frames, BA to "
+          f"its end, 20 idle ticks; {wall:.2f} s wall; BA runs {mm.ba_log}) on {card}:")
+    for name, v in sorted(ticks.items()):
+        print(f"  {name:28s} n={len(v):3d}  mean {np.mean(v):9.3f} ms  "
+              f"max {np.max(v):9.3f} ms")
+
+    # device-busy share of the mapping slice: a window of process_frames
+    # with the map-maker ticking (BA under way after an on_map_changed)
+    mm._tick = tick
+    mm.on_map_changed()
+    batches = [torch.stack([warm[(j + k) % cs.N_WARMUP] for k in range(cs.B)])
+               for j in range(0, 32, cs.B)]
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            sys_.process_frames(b)
+        sys_.flush_pipeline()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, ops = _device_share(prof, wall)
+    print(f"mapping window: {len(batches) * cs.B} frames with the map-maker ticking, "
+          f"{wall * 1e3:.1f} ms wall under the profiler, device busy {busy:.1f} ms = "
+          f"{100 * busy / 1e3 / wall:.1f}%, {ops / (len(batches) * cs.B):.0f} device "
+          f"ops per frame, on {card}")
+
+
+def profile_lm(dev, card):
+    """Device ops per LM step and device-busy share over 10 LM steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mcptam_tpu_torch.ba.bundle import create_lm_state, lm_run
+
+    prob, cams = cs.lm_problem(dev)
+    st = lm_run(prob, create_lm_state(prob), cams, 10, fixed_b=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = lm_run(prob, st, cams, 10, fixed_b=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, ops = _device_share(prof, wall)
+    print(f"LM window: 10 steps in {wall * 1e3:.1f} ms wall under the profiler, "
+          f"device busy {busy:.1f} ms = {100 * busy / 1e3 / wall:.1f}%, "
+          f"{ops / 10:.0f} device ops per LM step, on {card}")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12,
+                                    max_name_column_width=60))
     return 0
 
 

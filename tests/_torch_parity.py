@@ -8,6 +8,7 @@ crosses between them as numpy arrays only.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -117,3 +118,102 @@ def port_scene():
             convert.camera_from_numpy(np_get(cams_sbi)),
             convert.map_state_from_numpy(np_get(ms)),
             frames)
+
+
+# the map-maker tests' scene: a sparser ground-truth map (12 candidates a
+# level, so coarse corners stay free for point creation) and keyframes
+# rendered at sideways offsets large enough to pass the large-point test
+MAP_N_PER_LEVEL = 12
+MKF_TANGENTS = [
+    np.array([0.12 * k, 0.0, 0.02 * k, 0.0, 0.01 * k, 0.0], np.float32)
+    for k in (1, 2, 3)
+]
+
+
+@functools.lru_cache(maxsize=None)
+def mapping_scene():
+    """(JAX cams, JAX cam_from_base, the ground-truth map as numpy, and
+    for each MKF_TANGENTS pose its JAX FrameFeatures as numpy), built once
+    per process; the map is built by the port, as in jax_scene."""
+    from mcptam_tpu.core.se3 import SE3
+    from mcptam_tpu.io.synthetic import render_rig
+    from mcptam_tpu.map.keyframe import make_frame_features
+    from mcptam_tpu_torch.io.synthetic import (
+        build_groundtruth_map, make_rig as p_make_rig,
+    )
+
+    cams, cfb, _, _, _ = jax_scene()
+    p_cams, p_cfb = p_make_rig(C, H, W, spread_deg=25.0)
+    p_ms, _ = build_groundtruth_map(
+        p_cams, p_cfb, H, W, n_per_level=MAP_N_PER_LEVEL,
+        max_points=MAX_POINTS, max_mkfs=MAX_MKFS, max_meas=MAX_MEAS)
+    feats_fn = jax.jit(make_frame_features)
+    feats = []
+    for v in MKF_TANGENTS:
+        img = jnp.clip(render_rig(cams, cfb, SE3.exp(jnp.asarray(v)), SEED, H, W),
+                       0, 255).astype(jnp.uint8)
+        feats.append(np_get(feats_fn(img.astype(jnp.float32))))
+    return cams, cfb, convert.to_numpy(p_ms), tuple(feats)
+
+
+def jax_map(ms_np):
+    """A numpy MapState tree (convert.to_numpy) as the JAX MapState."""
+    from mcptam_tpu.map.state import create_map_state
+
+    cams, cfb, _, _, _ = jax_scene()
+    return jax_tree_from_numpy(
+        create_map_state(H, W, C, cfb, MAX_POINTS, MAX_MKFS, MAX_MEAS), ms_np)
+
+
+def synthetic_track_result(ms_np, cams_port, tangent, K=64, seed=0):
+    """The sel_* fields a tracker result hands the map-maker, made up from
+    the map: K (camera, point) pairs that project into the frame at
+    ``tangent``, found at the projection plus 0.3 px noise, a few not
+    found and a few Tukey outliers.  numpy dict."""
+    from mcptam_tpu_torch.core.camera import project
+    from mcptam_tpu_torch.core.se3 import SE3
+
+    rng = np.random.default_rng(seed)
+    pose = SE3.exp(t(tangent))
+    cfb = SE3(R=t(ms_np["cam_from_base"]["R"]), t=t(ms_np["cam_from_base"]["t"]))
+    pos = t(ms_np["points"]["pos_w"])
+    cands = []
+    for c in range(C):
+        uv, ok = project(cams_port[c], (cfb[c] @ pose).apply(pos))
+        ok = n(ok) & ms_np["points"]["valid"]
+        cands += [(c, int(p), n(uv)[p]) for p in np.flatnonzero(ok)]
+    pick = rng.choice(len(cands), K, replace=False)
+    sel = [cands[i] for i in pick]
+    return {
+        "sel_cam": np.array([s[0] for s in sel], np.int32),
+        "sel_point": np.array([s[1] for s in sel], np.int32),
+        "sel_level": ms_np["points"]["src_level"][[s[1] for s in sel]].astype(np.int32),
+        "sel_pos_l0": (np.stack([s[2] for s in sel])
+                       + rng.normal(size=(K, 2)) * 0.3).astype(np.float32),
+        "sel_found": rng.random(K) > 0.1,
+        "sel_outlier": rng.random(K) < 0.1,
+        "sel_subpix": np.ones(K, bool),
+    }
+
+
+@contextlib.contextmanager
+def jax_builder_drops_unplaced():
+    """Repair, in this process only, the JAX builder's scatter fault
+    (ROADMAP section C): alloc_slots gives an unplaced request the slot of
+    the first placed one, and under jit the unplaced write reverts it.
+    Inside this context unplaced requests get an out-of-range slot, whose
+    writes JAX drops — what the port's builder does.  The package's files
+    are not touched."""
+    import mcptam_tpu.map.builder as jbuilder
+
+    orig = jbuilder.alloc_slots
+
+    def alloc_slots(free, want):
+        slot, ok = orig(free, want)
+        return jnp.where(ok, slot, free.shape[0]), ok
+
+    jbuilder.alloc_slots = alloc_slots
+    try:
+        yield
+    finally:
+        jbuilder.alloc_slots = orig

@@ -108,3 +108,6 @@ def test_camera_project_unproject_derivs(rng):
           rtol=1e-4, atol=1e-3)
     for a, b in zip(pcam.cam_sphere_deriv(t(v)), jcam.cam_sphere_deriv(jnp.asarray(v))):
         close(a, b)
+    close(pcam.project_jacobian_point(pc[:, None], t(v)),
+          jax.vmap(jcam.project_jacobian_point)(jc, jnp.asarray(v)),
+          rtol=1e-4, atol=1e-3)

@@ -1,6 +1,8 @@
-"""Port parity of the tracking slice: the map builder, the whole batched
-step (features -> tracker -> point stats -> add heuristic -> packed
-scalars) against the JAX System's compiled batch step, and the host drain.
+"""Port parity of the slice: the map builder, the whole batched step
+(features -> tracker -> point stats -> add heuristic -> packed scalars)
+against the JAX System's compiled batch step, the host drain, the add
+heuristic's distance to queued MKFs, and process_frames with the
+map-maker ticking against the JAX System.process_frames.
 
 Both packages get the same uint8 frames and the same map.  Tolerances:
   * lost / quality / add flags, map counts, tracker lost counter: exact;
@@ -10,7 +12,11 @@ Both packages get the same uint8 frames and the same map.  Tolerances:
     deep), covariances within 1% of their largest entry: each comes out of
     20 Gauss-Newton iterations of f32 normal equations summed in another
     order;
-  * per-point inlier/outlier tallies equal on >= 99% of the points."""
+  * per-point inlier/outlier tallies equal on >= 99% of the points;
+  * with the map-maker on: FrameInfo flags, added_mkf, MKF and point
+    counts and the scheduler's state exact; MKF poses 1e-4.  The JAX
+    builder's scatter fault is repaired in-process for that test, as in
+    tests/test_torch_mapmaker.py."""
 
 import dataclasses
 
@@ -21,7 +27,8 @@ import pytest
 import torch
 
 from _torch_parity import (
-    C, H, MAX_MEAS, MAX_MKFS, MAX_POINTS, W, jax_scene, n, np_get, port_scene, t,
+    C, H, MAX_MEAS, MAX_MKFS, MAX_POINTS, SEED, W, jax_builder_drops_unplaced,
+    jax_map, jax_scene, mapping_scene, n, np_get, port_scene, t, traj_tangent,
 )
 
 from mcptam_tpu.config import MapMakerConfig, TrackerConfig
@@ -74,7 +81,8 @@ def stepped():
         psys.ts, psys.ms, t(frames[1:1 + B]), torch.ones(C, dtype=torch.bool))
     return dict(jts=np_get(jts), jms=np_get(jms), jscal=np.asarray(jscal),
                 jinfos=jinfos, pts=convert.to_numpy(pts),
-                pms=convert.to_numpy(pms), pscal=n(pscal))
+                pms=convert.to_numpy(pms), pscal=n(pscal),
+                jfn=jsys._get_batch_fn(B))
 
 
 def test_packed_scalars_match(stepped):
@@ -126,8 +134,9 @@ def test_drain_matches(stepped):
 
 def test_process_frames_pipeline_and_gates():
     """process_frames drains every frame once, in order, through the
-    pipeline; it refuses an uninitialised map and an add-MKF request while
-    AddingMKFs is on, instead of skipping them."""
+    pipeline; it refuses an uninitialised map instead of skipping it; with
+    AddingMKFs on, a frame far from the map's MKF queues a keyframe, which
+    the next map-maker tick integrates or rejects."""
     frames = jax_scene()[-1]
     sys_ = _port_system(pipeline_depth=2)
     sys_.vars["AddingMKFs"] = False
@@ -144,12 +153,134 @@ def test_process_frames_pipeline_and_gates():
     fresh.initialized = False
     with pytest.raises(NotImplementedError):
         fresh.process_frames(t(frames[:1]))
+    with pytest.raises(NotImplementedError):
+        fresh.process_frame(t(frames[0]))
 
-    # a far-away pose makes the add heuristic fire on a good frame
+    # a far-away MKF pose makes the add heuristic fire on a good frame
     adder = _port_system()
     adder.ms.mkfs.base_from_world.t[0] += torch.tensor([0.0, 0.0, 0.5])
-    with pytest.raises(NotImplementedError, match="keyframe"):
-        adder.process_frames(t(frames[:1]))
+    out = adder.process_frames(t(frames[:1]))
+    assert [i.added_mkf for i in out] == [True]
+    assert adder.mapmaker.queue_size() == 0
+    assert adder.mapmaker.last_timing.kind in ("creation", "creation-rejected")
+
+
+def test_reset_keeps_pose():
+    """reset(keep_pose=True), the reset after repeated failed BAs: a fresh
+    map and tracker at the old pose, the map-maker cleared, the frames in
+    flight dropped and counted."""
+    frames = jax_scene()[-1]
+    sys_ = _port_system(pipeline_depth=4)
+    sys_.vars["AddingMKFs"] = False
+    assert sys_.process_frames(t(frames[:2])) == []
+    pose = sys_.ts.pose
+    sys_.mapmaker.add_mkf(None, pose, None)
+    sys_.reset(keep_pose=True)
+    assert sys_.last_reset_dropped == 2 and not sys_.initialized
+    assert int(sys_.ms.mkfs.valid.sum()) == 0 and sys_.mapmaker.queue_size() == 0
+    np.testing.assert_array_equal(n(sys_.ts.pose.t), n(pose.t))
+    np.testing.assert_array_equal(n(sys_.ts.pose.R), n(pose.R))
+
+
+def _queue(tangent, valid):
+    """Queue-pose slots (2 of them) holding one MKF at ``tangent``."""
+    from mcptam_tpu.core.se3 import SE3 as JSE3
+    p = JSE3.exp(jnp.asarray(tangent))
+    qR = np.stack([np.asarray(p.R), np.eye(3, dtype=np.float32)])
+    qt = np.stack([np.asarray(p.t), np.zeros(3, np.float32)])
+    return qR, qt, np.array([6.0, 1.0], np.float32), np.array([valid, False])
+
+
+def test_queue_distance_repair(stepped):
+    """The add heuristic measures the distance to MKFs still queued in the
+    map-maker (NeedNewMultiKeyFrame): with the map's MKF moved away every
+    frame asks for a keyframe, and a queued MKF at the frames' own pose
+    silences them — in both packages, on the same packed scalars."""
+    from mcptam_tpu.tracker.tracker import create_tracker_state as j_cts
+    cams, cfb, cams_sbi, ms, frames = jax_scene()
+    far = ms.mkfs.base_from_world.t.at[0].add(jnp.asarray([0.0, 0.0, 0.5]))
+    jms = ms.replace(mkfs=ms.mkfs.replace(
+        base_from_world=ms.mkfs.base_from_world.replace(t=far)))
+    images = jnp.asarray(frames[1:1 + B])
+    for valid in (False, True):
+        q = _queue(traj_tangent(1), valid)
+        _, _, jscal, _ = stepped["jfn"](
+            j_cts(C), jax.tree_util.tree_map(jnp.copy, jms), images,
+            jnp.ones((C,), bool), tuple(map(jnp.asarray, q)))
+        psys = _port_system()
+        psys.ms.mkfs.base_from_world.t[0] += torch.tensor([0.0, 0.0, 0.5])
+        _, _, pscal, _ = psys._batch_step(
+            psys.ts, psys.ms, t(frames[1:1 + B]), torch.ones(C, dtype=torch.bool),
+            tuple(map(t, q)))
+        jscal, pscal = np.asarray(jscal), n(pscal)
+        np.testing.assert_array_equal(pscal[:, [0, 1, 2, 4, 5]], jscal[:, [0, 1, 2, 4, 5]])
+        assert (jscal[:, 2] == (0.0 if valid else 1.0)).all(), valid
+
+
+# the map-maker slice: frames walking sideways away from the map's MKF;
+# the add heuristic fires with margin on the second frame (scaled distance
+# ~0.046 against a threshold of 0.033) and on no later one (<= 0.025 from
+# the new MKF)
+WALK = [0.06, 0.16, 0.18, 0.20, 0.22, 0.24]
+
+
+def _walk_tangent(x):
+    return np.array([x, 0.0, x / 6.0, 0.0, x / 12.0, 0.0], np.float32)
+
+
+def test_process_frames_with_mapmaker_matches():
+    """Three batches of two frames and a flush through process_frames with
+    the map-maker ticking every batch, from the same map, tracker pose and
+    frames: the same FrameInfos, keyframe add, integration, BA schedule
+    and map."""
+    from mcptam_tpu.core.se3 import SE3 as JSE3
+    from mcptam_tpu.io.synthetic import render_rig
+    from mcptam_tpu.system.mapmaker import MM_RUNNING as J_RUNNING
+    from mcptam_tpu_torch.system.mapmaker import MM_RUNNING
+
+    jcams, jcfb, _, _ = mapping_scene()
+    _, _, jcams_sbi, _, _ = jax_scene()
+    ms_np = mapping_scene()[2]
+    frames = np.stack([np.asarray(jnp.clip(render_rig(
+        jcams, jcfb, JSE3.exp(jnp.asarray(_walk_tangent(x))), SEED, H, W),
+        0, 255)).astype(np.uint8) for x in WALK])
+
+    jsys = JSystem(jcams, jcfb, jcams_sbi, H, W, TrackerConfig(**TCFG),
+                   MapMakerConfig(), MAX_POINTS, MAX_MKFS, MAX_MEAS)
+    jsys.ms, jsys.initialized = jax_map(ms_np), True
+    jsys.mapmaker.state = J_RUNNING
+    jsys.ts = jsys.ts.replace(pose=JSE3.exp(jnp.asarray(_walk_tangent(WALK[0]))))
+    psys = _port_system()
+    psys.ms = convert.map_state_from_numpy(ms_np)
+    psys.mapmaker.state = MM_RUNNING
+    psys.ts.pose = SE3.exp(t(_walk_tangent(WALK[0])))
+
+    with jax_builder_drops_unplaced():
+        jinfos, pinfos = [], []
+        for i in range(0, len(WALK), B):
+            jinfos += jsys.process_frames(jnp.asarray(frames[i:i + B]))
+            pinfos += psys.process_frames(t(frames[i:i + B]))
+        jinfos += jsys.flush_pipeline()
+        pinfos += psys.flush_pipeline()
+
+    assert [i.frame_id for i in pinfos] == [i.frame_id for i in jinfos] == list(range(6))
+    assert [i.added_mkf for i in jinfos] == [False, True, False, False, False, False]
+    for pi, ji in zip(pinfos, jinfos):
+        for name in ("quality", "lost", "n_points", "n_mkfs", "added_mkf", "mm_state"):
+            assert getattr(pi, name) == getattr(ji, name), (ji.frame_id, name)
+        assert abs(pi.n_found - ji.n_found) <= 0.01 * ji.n_found
+        np.testing.assert_allclose(pi.pose, ji.pose, rtol=0, atol=1e-4)
+    jmm, pmm = jsys.mapmaker, psys.mapmaker
+    assert jmm.last_timing.kind == pmm.last_timing.kind
+    for name in ("_ba_kind", "_local_done", "_global_done", "failed_ba_count", "state"):
+        assert getattr(pmm, name) == getattr(jmm, name), name
+    assert pmm.queue_size() == jmm.queue_size() == 0
+    j, p = np_get(jsys.ms), convert.to_numpy(psys.ms)
+    assert int(j.mkfs.valid.sum()) == int(p["mkfs"]["valid"].sum()) == 2
+    np.testing.assert_array_equal(p["points"]["valid"], j.points.valid)
+    np.testing.assert_array_equal(p["meas"]["valid"], j.meas.valid)
+    np.testing.assert_allclose(p["mkfs"]["base_from_world"]["t"],
+                               j.mkfs.base_from_world.t, rtol=0, atol=1e-4)
 
 
 def test_builder_matches():
