@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tracking and mapping paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's tracking, mapping and live paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,9 +9,12 @@ Phases, each fatal on failure:
   2. build the CUDA kernels from mcptam_tpu_torch/csrc (timed);
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it, with the tolerance stated, timed beside the
-     plain version: FAST, the window gather and ESM on tracking shapes,
+     plain version and, where one PyTorch call computes the same function,
+     beside that call: FAST, the window gather and ESM on tracking shapes,
      both SPD Cholesky solves at n = 96 and 288 on random SPD matrices and
-     on the reduced camera system of one LM step of phase 5's problem;
+     on the reduced camera system of one LM step of phase 5's problem, the
+     half-sample on random f32 and a rendered frame, the unaligned gather
+     on 3840 windows of 29 and of 9 pixels, some overrunning the plane;
   4. the tracking slice: render the 4-camera 480x640 rig and build the
      ground-truth map on the card, then run System.process_frames over
      the 128-pose benchmark trajectory in batches of 8 with the
@@ -26,8 +30,17 @@ Phases, each fatal on failure:
      0.3 m sideways and back so that keyframes are added and integrated,
      then the timed 128-pose trajectory with the benchmark's gates (ATE
      included), at least one MKF integrated and one BA finished with
-     accepted steps.
+     accepted steps;
+  7. live: a fresh System with a static mask (a 32-px bottom band) and
+     glare masking drives System.process_frame: it bootstraps its own map
+     from frame 0, walks the sideways warm-up, turning in yaw, so that
+     keyframes are added through the MiniPatch candidate filter, loses
+     track on quadrant-panel frames, relocalises when it returns to
+     trajectory pose 0 and tracks on; gates mean_found and ATE over the frames outside the lost stretch;
+     then the map is saved and loaded into a second System, and both track
+     the next 8 frames to the same poses.
 
+Each path's launch counts are set to 0 just before it and read just after.
 Prints one JSON line of kernel results, the card line, and last the line
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
 CUDA device is present or any phase fails.
@@ -64,10 +77,37 @@ MIN_FOUND, MAX_POSE_ERR, MAX_ATE = 100.0, 0.05, 0.02   # bench.py's gates
 BA_CHUNK, TICK_EVERY = 4, 2   # the benchmark's map-maker deployment
 N_WARMUP, EXCURSION_M = 88, 0.3
 LM_COST_TOL = 1e-2  # K5 vs K4 final LM cost: the accept path may differ by f32 rounding
+# the live phase: sideways warm-up frames, at most this many panel frames
+# to lose track, trajectory frames after the loss, frames after the map
+# round trip, their pose tolerance, and the static mask's bottom band
+N_LIVE_WALK, N_PANEL_MAX, N_RETURN, N_RESUME = 24, 8, 16, 8
+RESUME_TOL, MASK_BAND = 1e-5, 32
+# the live warm-up also turns the rig in yaw, by up to LIVE_YAW rad: the
+# tracker's coarse search (30 px at level 0, ~10 deg) recovers a sideways
+# offset of 0.22 m on the first frame back by itself, so only a turned
+# loss pose leaves relocalisation to do the recovery
+LIVE_YAW = 0.5
+N_GATHER_WINDOWS = 3840   # 4 cams x (512 + 256 + 128 + 64) candidates
+# the H100 SXM's published peaks: HBM bytes/s and f32 operations/s outside
+# the tensor cores
+PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
+# operations a pixel of the FAST front-end does: 16 ring differences, for
+# bright and dark a 10-of-16 arc minimum in 4 doubling steps over the 16
+# starts and their maximum, the 3x3 nonmax, two histogram bins
+FAST_OPS_PER_PIXEL = 200
+# operations an ESM iteration does per template pixel: the warp, the
+# bilinear read, gradients, the 4-vector Jacobian and residual, and the 14
+# normal-equation sums
+ESM_OPS_PER_PIXEL = 64
 
 KERNELS = {
     "fast_frontend": ("mcptam_tpu_torch/csrc/fast.cu",
                       "mcptam_tpu/ops/fast_pallas.py:73"),
+    "half_sample": ("mcptam_tpu_torch/csrc/halfsample.cu",
+                    "scripts/test_pallas_halfsample.py:12,18 (K6); "
+                    "scripts/test_pallas_halfsample.py:91,98 (K7)"),
+    "gather_unaligned": ("mcptam_tpu_torch/csrc/gather_unaligned.cu",
+                         "scripts/profile_gather.py:21"),
     "gather_windows": ("mcptam_tpu_torch/csrc/gather.cu",
                        "mcptam_tpu/ops/pallas_gather.py:26"),
     "esm_align_all": ("mcptam_tpu_torch/csrc/esm.cu",
@@ -97,6 +137,14 @@ def excursion_tangent(i: int) -> list:
     return v
 
 
+def live_tangent(i: int) -> list:
+    """Warm-up pose i of phase 7: the phase 6 excursion, turned in yaw by a
+    ramp that reaches LIVE_YAW at the last warm-up frame."""
+    v = excursion_tangent(i)
+    v[4] += LIVE_YAW * i / (N_LIVE_WALK - 1)
+    return v
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -104,13 +152,29 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def bound(n_bytes: float, n_ops: float):
+    """The least time (ms) the card could take: bytes over the HBM rate or
+    operations over the f32 rate, whichever is larger, and which it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
 def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn over reps launches, after one warm-up."""
+    """Mean device time of fn over reps launches, after one warm-up.  A
+    spin kernel first holds the stream for longer than the host takes to
+    enqueue the reps calls, so that the events time the device's work and
+    not the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at the H100's 1.98 GHz top SM clock: at a lower clock it spins longer
+    torch.cuda._sleep(int(min(1.5 * reps * host_s + 1e-3, 2.0) * 1.98e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -137,7 +201,11 @@ def check_fast(images):
             err = max(err, (a - b).abs().max().item())
     ms = time_ms(lambda: [fast_frontend(p) for p in pyr])
     plain_ms = time_ms(lambda: [fast_frontend_reference(p) for p in pyr])
-    return err, ms, plain_ms
+    px = sum(p.numel() for p in pyr)
+    # image in; score and nonmax out; two (C,64) histograms per level
+    bnd = bound(px * 4 * 3 + len(pyr) * 2 * pyr[0].shape[0] * 64 * 4,
+                px * FAST_OPS_PER_PIXEL)
+    return err, ms, plain_ms, bnd, None
 
 
 def check_gather(feats, atlas_u8, gen):
@@ -168,7 +236,9 @@ def check_gather(feats, atlas_u8, gen):
     cols = torch.randint(0, plane.shape[1] - 35, (1000,), generator=gen).to(dev)
     ms = time_ms(lambda: gather_windows(plane, rows, cols, 35))
     plain_ms = time_ms(lambda: gather_windows_reference(plane, rows, cols, 35))
-    return err, ms, plain_ms
+    # the windows' pixels in and out, the starts in
+    bnd = bound(1000 * 35 * 35 * 4 * 2 + 1000 * 2 * 8, 0)
+    return err, ms, plain_ms, bnd, None
 
 
 def check_esm(feats_prev, feats_cur):
@@ -185,7 +255,66 @@ def check_esm(feats_prev, feats_cur):
         raise AssertionError(f"esm_align_all se2 differs by {err} > {ESM_TOL}")
     ms = time_ms(lambda: esm_align_all(*args))
     plain_ms = time_ms(lambda: esm_align(*args))
-    return err, ms, plain_ms
+    C_, R_, W_ = args[0].shape
+    bnd = bound(4 * C_ * R_ * W_ * 4 + C_ * 5 * 4, C_ * R_ * W_ * 9 * ESM_OPS_PER_PIXEL)
+    return err, ms, plain_ms, bnd, None
+
+
+def check_half_sample(frame):
+    """K6/K7 on random f32 (4,480,640) of many magnitudes and on a rendered
+    frame, and down the pyramid and SBI chain: bit-exact.  Timed at
+    (4,480,640) beside the plain version and F.avg_pool2d."""
+    import torch
+    import torch.nn.functional as F
+    from mcptam_tpu_torch.ops.pyramid import half_sample, half_sample_reference
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((C, H, W), generator=gen) * torch.pow(
+        10.0, torch.randint(-3, 4, (C, H, W), generator=gen).to(torch.float32))
+    cases = [x.to(frame.device), frame]
+    for _ in range(4):                   # the SBI chain's levels, to 30x40
+        cases.append(half_sample_reference(cases[-1]))
+    for a in cases:
+        got, ref = half_sample(a), half_sample_reference(a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"half_sample differs at {tuple(a.shape)}: max |d| "
+                                 f"{(got - ref).abs().max().item()}")
+    a = cases[0]
+    ms = time_ms(lambda: half_sample(a))
+    plain_ms = time_ms(lambda: half_sample_reference(a))
+    library_ms = time_ms(lambda: F.avg_pool2d(a, 2))
+    # the image in, the half-size image out; 3 adds and a scale per output
+    bnd = bound(a.numel() * 4 * 5 / 4, a.numel())
+    return 0.0, ms, plain_ms, bnd, library_ms
+
+
+def check_gather_unaligned(feats, gen):
+    """K8 on the feature atlas plane at MiniPatch's full width: 3840
+    windows of 29 and of 9 pixels, starts spilling past every edge so that
+    the clip and the zero fill are exercised: bit-exact."""
+    import torch
+    from mcptam_tpu_torch.ops.gather_unaligned_kernel import (
+        gather_unaligned, gather_unaligned_reference,
+    )
+
+    plane = feats.atlas.reshape(-1, feats.atlas.shape[-1]).contiguous()
+    K = N_GATHER_WINDOWS
+    for G in (29, 9):
+        rows = torch.randint(-2 * G, plane.shape[0] + G, (K,), generator=gen).to(plane.device)
+        cols = torch.randint(-2 * G, plane.shape[1] + G, (K,), generator=gen).to(plane.device)
+        got = gather_unaligned(plane, rows, cols, G)
+        ref = gather_unaligned_reference(plane, rows, cols, G)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"gather_unaligned G={G} differs")
+        if G == 29:
+            timed = (rows, cols)
+    rows, cols = timed
+    ms = time_ms(lambda: gather_unaligned(plane, rows, cols, 29))
+    plain_ms = time_ms(lambda: gather_unaligned_reference(plane, rows, cols, 29))
+    bnd = bound(K * 29 * 29 * 4 * 2 + K * 2 * 4, 0)
+    return 0.0, ms, plain_ms, bnd, None
 
 
 def lm_problem(dev, noise=0.3):
@@ -242,7 +371,8 @@ def backward_error(A, x, b) -> float:
 def check_spd(sf, sf_b, gen):
     """K4 and K5 against the plain solve at n = 96 and 288 (m = 1) on
     random SPD, and at n = 96 on phase 5's Schur matrix.  Returns
-    {kernel: (max_abs_err, ms at n=96, plain ms at n=96)}."""
+    {kernel: (max_abs_err, ms, plain ms, (bound ms, bound by), library ms)},
+    the times at n = 96."""
     import torch
     from mcptam_tpu_torch.core.spd import spd_solve_kernel, spd_solve_reference
 
@@ -277,7 +407,11 @@ def check_spd(sf, sf_b, gen):
                   f"{bwd:.3g} (plain {backward_error(A, x_plain, b):.3g}), kappa {kappa:.3g}")
         for n, (k_ms, p_ms) in times.items():
             print(f"  {kname} n={n} m=1: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
-        out[kname] = (err_abs, times[96][0], times[96][1])
+        n = 96
+        # A, b in, x out; Cholesky n^3/3 and two triangular solves 2 n^2
+        bnd = bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n)
+        # the plain version is the library solve, torch.linalg.solve
+        out[kname] = (err_abs, times[96][0], times[96][1], bnd, times[96][1])
     return out
 
 
@@ -440,6 +574,160 @@ def phase_mapping(cams, cfb, cams_sbi, frames, poses, card):
     return launches
 
 
+def panel_frame():
+    """Quadrant black/white panels on every camera: imagery the map never
+    saw, whose structure survives the SBI blur, so relocalisation rejects
+    it (tests/test_system.py:152-169)."""
+    yy, xx = np.mgrid[0:H, 0:W]
+    panel = (((yy < H // 2) ^ (xx < W // 2)) * 255).astype(np.uint8)
+    return np.broadcast_to(panel, (C, H, W)).copy()
+
+
+def phase_live(cams, cfb, cams_sbi, frames, poses, card):
+    """Phase 7.  Returns the launch counts of the live run."""
+    import torch
+    from mcptam_tpu_torch import backend
+    from mcptam_tpu_torch.config import MapMakerConfig, TrackerConfig
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import render_rig
+    from mcptam_tpu_torch.map.state import clone_tree
+    from mcptam_tpu_torch.system.evaluate import ate_rmse
+    from mcptam_tpu_torch.system.mapio import MAP_LEAVES
+    from mcptam_tpu_torch.system.system import System
+
+    dev = cfb.t.device
+    masks = torch.ones((C, H, W), dtype=torch.bool, device=dev)
+    masks[:, H - MASK_BAND:, :] = False
+
+    def new_system():
+        s_ = System(cams, cfb, cams_sbi, H, W, tcfg=TrackerConfig(),
+                    mcfg=MapMakerConfig(), max_points=MAX_POINTS,
+                    max_mkfs=MAX_MKFS, max_meas=MAX_MEAS, masks=masks)
+        s_.set_var("GlareMasking", True)
+        return s_
+
+    def render(tangent):
+        pose = SE3.exp(torch.tensor(tangent, dtype=torch.float32, device=dev))
+        img = torch.clamp(render_rig(cams, cfb, pose, SEED, H, W), 0, 255).to(torch.uint8)
+        return img, (pose.R.cpu().numpy(), pose.t.cpu().numpy())
+
+    def in_band(feats):
+        """Valid candidates inside the masked bottom band, at any level."""
+        return sum(int((v & (xy[..., 1] >= (H - MASK_BAND) >> l)).sum())
+                   for l, (xy, v) in enumerate(zip(feats.cand_xy, feats.cand_valid)))
+
+    walk = [render(live_tangent(i)) for i in range(N_LIVE_WALK)]
+    panel = torch.as_tensor(panel_frame(), device=dev)
+    sys_ = new_system()
+    torch.cuda.synchronize()
+
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    kept, band = [], 0            # (info, ground truth) outside the lost stretch
+    for img, gt in walk:
+        info = sys_.process_frame(img)
+        kept.append((info, gt))
+        band += in_band(sys_._prev_feats)
+        if len(kept) == 1:
+            n_boot = info.n_points
+            if not sys_.initialized or n_boot < sys_.mcfg.min_map_points:
+                raise AssertionError(f"live: bootstrap made {n_boot} points")
+    n_added = sum(i.added_mkf for i, _ in kept)
+    n_walk_frames = len(kept)
+    lost_at = None
+    for k in range(N_PANEL_MAX):
+        info = sys_.process_frame(panel)
+        if info.relocalized:
+            raise AssertionError("live: relocalised onto the panel frames")
+        if info.lost:
+            lost_at = k + 1
+            break
+    if lost_at is None:
+        raise AssertionError(f"live: still tracking after {N_PANEL_MAX} panel frames")
+    loss_t = sys_.ts.pose.t.cpu().numpy()
+    reloc_at, n_lost_return = None, 0
+    for i in range(N_RETURN):
+        info = sys_.process_frame(frames[i % N_POSES])
+        band += in_band(sys_._prev_feats)
+        if reloc_at is None:
+            n_lost_return += 1
+            if info.relocalized:
+                reloc_at = i
+            continue
+        kept.append((info, poses[i % N_POSES]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_frames = n_walk_frames + lost_at + N_RETURN
+    launches = backend.kernel_report()
+
+    if reloc_at is None:
+        raise AssertionError("live: no frame relocalised after the loss")
+    resumed = [i for i, _ in kept[n_walk_frames:]]
+    if not resumed or any(i.lost for i in resumed[-4:]):
+        raise AssertionError("live: tracking did not resume after relocalisation")
+    infos = [i for i, _ in kept]
+    gt34 = np.stack([np.concatenate([R, t_[:, None]], 1) for _, (R, t_) in kept])
+    ate = ate_rmse(np.stack([i.pose for i in infos]), gt34)["rmse"]
+    mean_found = float(np.mean([i.n_found for i in infos]))
+    print(f"live: {n_frames} process_frame frames in {dt:.2f} s, {n_frames / dt:.2f} "
+          f"frames/s on {card}; bootstrap {n_boot} points, {n_added} MKFs added in "
+          f"{n_walk_frames} warm-up frames, lost after {lost_at} panel frames "
+          f"{np.linalg.norm(loss_t - poses[0][1]):.3f} m and {LIVE_YAW} rad from "
+          f"trajectory pose 0, "
+          f"relocalised on return frame {reloc_at}; {len(infos)} frames outside the "
+          f"lost stretch: mean_found {mean_found:.1f}, ATE {ate:.3e} m; map "
+          f"{infos[-1].n_mkfs} MKFs / {infos[-1].n_points} points; candidates in "
+          f"the masked band {band}; launches {launches}")
+    if band:
+        raise AssertionError(f"live: {band} candidates inside the static mask")
+    if n_added < 1:
+        raise AssertionError("live: no MKF was added through the candidate filter")
+    if mean_found < MIN_FOUND or not ate < MAX_ATE:
+        raise AssertionError(f"live gates failed: mean_found {mean_found} (>= {MIN_FOUND}), "
+                             f"ATE {ate} (< {MAX_ATE})")
+    for k in ("fast_frontend", "gather_windows", "esm_align_all", "half_sample",
+              "gather_unaligned"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the live path")
+
+    # the map round trip: settle the map-maker, save, load into a second
+    # System, give it the same tracker and scheduler state, and track on
+    sys_.flush_pipeline()
+    mm = sys_.mapmaker
+    for _ in range(200):
+        if not mm.queue and mm._ba_kind == "none" and mm._local_done and mm._global_done:
+            break
+        sys_.ms = mm.step(sys_.ms)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                        "live_session.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    sys_.save(path)
+    other = new_system()
+    other.load(path)
+    for name in MAP_LEAVES:
+        a, b = sys_.ms, other.ms
+        for part in name.split("."):
+            a, b = getattr(a, part), getattr(b, part)
+        if not torch.equal(a, b):
+            raise AssertionError(f"live: map leaf {name} changed in the round trip")
+    other.ts = clone_tree(sys_.ts)
+    for name in ("_local_done", "_global_done", "_idle_ticks"):
+        setattr(other.mapmaker, name, getattr(mm, name))
+    err = 0.0
+    for s_ in (sys_, other):
+        s_.set_var("AddingMKFs", False)
+    for i in range(N_RETURN, N_RETURN + N_RESUME):
+        pa = sys_.process_frame(frames[i % N_POSES]).pose
+        pb = other.process_frame(frames[i % N_POSES]).pose
+        err = max(err, float(np.abs(pa - pb).max()))
+    print(f"live map round trip: {len(MAP_LEAVES)} leaves equal; {N_RESUME} frames "
+          f"tracked by both systems, poses within {err:.3e}")
+    if not err <= RESUME_TOL:
+        raise AssertionError(f"live: poses after the map round trip differ by {err}")
+    os.remove(path)
+    return launches
+
+
 def pose_errors(infos, poses):
     """Per-frame pose error (rotation angle (+) translation), as the
     benchmark's max_pose_err; frame i maps to trajectory pose i % N_POSES."""
@@ -513,11 +801,14 @@ def main() -> int:
         "fast_frontend": check_fast(frames[0].to(torch.float32)),
         "gather_windows": check_gather(feats0, ms.mkfs.atlas, gen),
         "esm_align_all": check_esm(make_frame_features(frames[0]), feats1),
+        "half_sample": check_half_sample(frames[0].to(torch.float32)),
+        "gather_unaligned": check_gather_unaligned(feats1, gen),
     }
     results.update(check_spd(*schur_system(*lm_problem(dev)), gen))
-    for k, (err, ms_k, ms_p) in results.items():
-        print(f"kernel {k}: max_abs_err {err} kernel {ms_k:.4f} ms "
-              f"plain {ms_p:.4f} ms ({card})")
+    for k, (err, ms_k, ms_p, (b_ms, b_by), lib_ms) in results.items():
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"kernel {k}: max_abs_err {err} kernel {ms_k:.4f} ms plain {ms_p:.4f} ms "
+              f"library {lib} bound {b_ms:.6f} ms ({b_by}) ({card})")
 
     # ---- 4. the slice
     sys_ = System(cams, cfb, cams_sbi, H, W, tcfg=TrackerConfig(),
@@ -551,7 +842,7 @@ def main() -> int:
     if mean_found < MIN_FOUND or max_err >= MAX_POSE_ERR:
         raise AssertionError(f"quality gates failed: mean_found {mean_found} "
                              f"(>= {MIN_FOUND}), max_pose_err {max_err} (< {MAX_POSE_ERR})")
-    for k in ("fast_frontend", "gather_windows", "esm_align_all"):
+    for k in ("fast_frontend", "gather_windows", "esm_align_all", "half_sample"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the tracking path")
 
@@ -574,14 +865,20 @@ def main() -> int:
     launches_k5 = phase_lm(dev, card)
 
     # ---- 6. mapping: process_frames with the map-maker ticking
-    launches = phase_mapping(cams, cfb, cams_sbi, frames, poses, card)
+    launches_map = phase_mapping(cams, cfb, cams_sbi, frames, poses, card)
+
+    # ---- 7. live: process_frame from an empty map
+    launches = phase_live(cams, cfb, cams_sbi, frames, poses, card)
+    # BA's kernels are read from their own paths: K4 from mapping, K5 from LM
+    launches["spd_solve_blocked"] = launches_map["spd_solve_blocked"]
     launches["spd_solve_simple"] = launches_k5
 
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
          "replaces": KERNELS[k][1], "launches": launches[k],
          "max_abs_err": results[k][0], "ms": results[k][1],
-         "plain_ms": results[k][2]}
+         "plain_ms": results[k][2], "bound_ms": results[k][3][0],
+         "bound_by": results[k][3][1], "library_ms": results[k][4]}
         for k in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

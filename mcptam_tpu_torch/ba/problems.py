@@ -18,7 +18,7 @@ from mcptam_tpu_torch.io.synthetic import make_rig
 
 
 def build(n_poses, n_points, n_cams, H=480, W=640, seed=0, sparse_k=None,
-          noise=0.3, device="cpu"):
+          noise=0.3, device="cuda"):
     """A random rig bundle: n_poses base poses (the first fixed) around
     points 3-8 m out, perturbed by 0.02 (tangent) and 0.04 m.  sparse_k:
     sample that many random (pose, camera, point) measurements instead of

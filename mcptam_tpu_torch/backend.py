@@ -16,6 +16,8 @@ LAUNCHES = {
     "esm_align_all": 0,   # ops/sbi_kernel.py, csrc/esm.cu
     "spd_solve_blocked": 0,  # core/spd.py, csrc/spd.cu (K4)
     "spd_solve_simple": 0,   # core/spd.py, csrc/spd.cu (K5)
+    "half_sample": 0,        # ops/halfsample_kernel.py, csrc/halfsample.cu (K6/K7)
+    "gather_unaligned": 0,   # ops/gather_unaligned_kernel.py, csrc/gather_unaligned.cu (K8)
 }
 
 

@@ -52,31 +52,31 @@ def _from(cls, src, device):
     return cls(**kw)
 
 
-def se3_from_numpy(src, device="cpu") -> SE3:
+def se3_from_numpy(src, device="cuda") -> SE3:
     return _from(SE3, src, device)
 
 
-def camera_from_numpy(src, device="cpu") -> CameraModel:
+def camera_from_numpy(src, device="cuda") -> CameraModel:
     return _from(CameraModel, src, device)
 
 
-def map_state_from_numpy(src, device="cpu") -> MapState:
+def map_state_from_numpy(src, device="cuda") -> MapState:
     return _from(MapState, src, device)
 
 
-def tracker_state_from_numpy(src, device="cpu") -> TrackerState:
+def tracker_state_from_numpy(src, device="cuda") -> TrackerState:
     return _from(TrackerState, src, device)
 
 
-def frame_features_from_numpy(src, device="cpu") -> FrameFeatures:
+def frame_features_from_numpy(src, device="cuda") -> FrameFeatures:
     return _from(FrameFeatures, src, device)
 
 
-def bundle_problem_from_numpy(src, device="cpu") -> BundleProblem:
+def bundle_problem_from_numpy(src, device="cuda") -> BundleProblem:
     return _from(BundleProblem, src, device)
 
 
-def lm_state_from_numpy(src, device="cpu") -> LMState:
+def lm_state_from_numpy(src, device="cuda") -> LMState:
     return _from(LMState, src, device)
 
 

@@ -55,7 +55,7 @@ class CameraModel:
                               for f in fields(self)})
 
 
-def make_camera(params9, image_size, device="cpu") -> CameraModel:
+def make_camera(params9, image_size, device="cuda") -> CameraModel:
     """Build a CameraModel from the 9-vector and the (width, height) the
     camera was calibrated at and delivers (src/TaylorCamera.cc:114-190;
     the reference's binned and cropped modes wait for the calibration

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface for Hopper (``sm_90a``), at first use, into
-``mcptam_tpu_torch/_build/``.  The library's file name carries a hash of
-the sources and flags, so a changed source builds anew.  It is loaded with
-ctypes; every pointer and the stream travel as ``c_void_p``.
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), at first
+use, into ``mcptam_tpu_torch/_build/``: one ``nvcc -c`` per source, all
+started together, then one link into a shared library with a plain C
+interface.  The library's file name carries a hash of the sources and
+flags, so a changed source builds anew.  It is loaded with ctypes; every
+pointer and the stream travel as ``c_void_p``.
 
 Nothing is built or loaded at import time: the CPU tests import every
 module of the port on a machine without nvcc.
@@ -22,10 +23,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
-SOURCES = ("common.cu", "fast.cu", "gather.cu", "esm.cu", "spd.cu")
+SOURCES = ("common.cu", "fast.cu", "gather.cu", "esm.cu", "spd.cu",
+           "halfsample.cu", "gather_unaligned.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -36,6 +38,8 @@ ENTRY_POINTS = {
     "mcptam_gather_windows_u8": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_esm_align_all": [_P] * 6 + [_I] * 2 + [_P],
     "mcptam_spd_solve": [_P] * 3 + [_I] * 3 + [_P],
+    "mcptam_half_sample": [_P] * 2 + [_I] * 3 + [_P],
+    "mcptam_gather_unaligned": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -58,21 +62,38 @@ def library_path() -> Path:
 
 
 def build() -> tuple:
-    """Compile the library unless this source hash is already built.
-    Returns (path, compiler log); the log holds ptxas' register and
-    shared-memory report of every kernel, empty when nothing was built."""
+    """Compile the library unless this source hash is already built: every
+    source in its own nvcc process, all at once, then one link.  Returns
+    (path, compiler log); the log holds ptxas' register and shared-memory
+    report of every kernel, empty when nothing was built."""
     out = library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    log, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        stdout, stderr = proc.communicate()
+        log.append(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{stderr}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, "".join(log)
 
 
 def load() -> ctypes.CDLL:

@@ -98,7 +98,7 @@ def ray_depth(cam_from_world: SE3, rays_c):
 
 
 def make_rig(n_cams: int, H: int = 480, W: int = 640,
-             spread_deg: float = 30.0, device="cpu"):
+             spread_deg: float = 30.0, device="cuda"):
     """n identical fisheye cameras fanned out in yaw with decimetre
     baselines, like the reference's multi-camera clusters."""
     params = DEFAULT_PARAMS.copy()

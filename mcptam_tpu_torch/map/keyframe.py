@@ -3,8 +3,7 @@
 
 One camera-batched computation produces the pyramid atlas, the FAST
 corner atlas with adaptive per-level thresholds, the nonmax candidate
-lists per level and the SBI templates.  Glare and static masks are not
-ported yet: every pixel is usable.
+lists per level (static-, glare- and border-masked) and the SBI templates.
 """
 
 from __future__ import annotations
@@ -41,18 +40,53 @@ class FrameFeatures:
     sbi_gy: torch.Tensor
 
 
+def glare_mask(img: torch.Tensor, radius: int = 2, iters: int = 5,
+               thresh: float = 245.0) -> torch.Tensor:
+    """True where usable (not glare): the reference's 5x5-ellipse dilation
+    applied 5 times, then threshold > 245 inverted (src/KeyFrame.cc:214-220).
+    Shifts wrap around the image edges, as in the JAX package."""
+    shifts = [(dy, dx) for dy in range(-radius, radius + 1)
+              for dx in range(-radius, radius + 1)
+              if (dy, dx) != (0, 0) and abs(dy) + abs(dx) <= radius + 1]
+    d = img
+    for _ in range(iters):
+        m = d
+        for dy, dx in shifts:
+            m = torch.maximum(m, torch.roll(d, (dy, dx), (-2, -1)))
+        d = m
+    return d <= thresh
+
+
 def _border_mask(H: int, W: int, border: int, device) -> torch.Tensor:
     ys = torch.arange(H, device=device)[:, None]
     xs = torch.arange(W, device=device)[None, :]
     return (ys >= border) & (ys < H - border) & (xs >= border) & (xs < W - border)
 
 
-def make_frame_features(images: torch.Tensor,
-                        fcfg: FeatureConfig = DEFAULT_FEATURES) -> FrameFeatures:
-    """images: (C,H,W) uint8 or float [0,255] on the device to compute on."""
+def make_frame_features(images: torch.Tensor, static_masks=None,
+                        fcfg: FeatureConfig = DEFAULT_FEATURES,
+                        glare_masking: bool = False) -> FrameFeatures:
+    """images: (C,H,W) uint8 or float [0,255] on the device to compute on.
+    static_masks: (C,H,W) bool, True where features may be taken (the
+    reference's per-camera mask images, src/SystemBase.cc:218-248), or None.
+    glare_masking: also exclude saturated regions (glare_mask)."""
     C, H, W = images.shape
     images = images.to(torch.float32)
     pyr = build_pyramid(images)
+
+    # usable pixels per level: the static mask taken every 2nd pixel per
+    # level, and the glare mask of the level image
+    masks = []
+    for l in range(LEVELS):
+        m = None
+        if static_masks is not None:
+            m = static_masks.to(torch.bool)
+            for _ in range(l):
+                m = m[..., ::2, ::2]
+        if glare_masking:
+            g = glare_mask(pyr[l])
+            m = g if m is None else m & g
+        masks.append(m)
 
     # FAST score + 3x3 nonmax + cumulative threshold histograms, one
     # front-end pass per level (the CUDA kernel on the card)
@@ -71,6 +105,8 @@ def make_frame_features(images: torch.Tensor,
             t = torch.full((C,), float(fcfg.fixed_thresholds[l]),
                            device=images.device)
         cm = score > (t - 1e-6)[:, None, None]
+        if masks[l] is not None:
+            cm = cm & masks[l]
         thresholds.append(t)
         corner_maps.append(cm)
         counts.append(torch.sum(cm, (-2, -1), dtype=torch.int32))
@@ -85,10 +121,12 @@ def make_frame_features(images: torch.Tensor,
         _, nm, _, freq_nm = fronts[l]
         k = min(MAX_CANDIDATES_PER_LEVEL[l], (H >> l) * (W >> l))
         h, w = nm.shape[-2:]
-        border = _border_mask(h, w, CANDIDATE_BORDER, images.device)
+        usable = _border_mask(h, w, CANDIDATE_BORDER, images.device).expand(C, h, w)
+        if masks[l] is not None:
+            usable = usable & masks[l]
         cutoff = cutoff_from_freq(freq_nm, thresholds[l], k)
         xy, vals, valid = select_corners_cutoff(
-            nm, border.expand(C, h, w), cutoff, k, floor=thresholds[l]
+            nm, usable, cutoff, k, floor=thresholds[l]
         )
         cand_xy.append(xy)
         cand_score.append(vals)

@@ -1,16 +1,16 @@
-"""Map-maker device work: keyframe integration and the tracker's add-MKF
-heuristic (port of mcptam_tpu/map/mapmaker_core.py, ref
+"""Map-maker device work: map bootstrap, keyframe integration and the
+tracker's add-MKF heuristic (port of mcptam_tpu/map/mapmaker_core.py, ref
 src/MapMakerServerBase.cc).
 
-``integrate_mkf_device`` is AddMultiKeyFrameAndCreatePoints (:346-404):
+``init_from_mkf`` is InitFromMultiKeyFrame (:146-261): the first MKF,
+fixed, with stereo points between neighbouring cameras of a rig, or
+fixed-depth points for one camera.  ``integrate_mkf_device`` is AddMultiKeyFrameAndCreatePoints (:346-404):
 commit the keyframe imagery, record the tracker's measurements, refind
 existing points in the new keyframes, then create points from its thinned
 candidates, coarse levels first against the closest keyframes of OTHER
 MKFs (the large-point sanity quantity), then the finer levels, then
 against sibling keyframes of the same MKF.  Every pass runs and the host
 decides acceptance afterwards, as in the reference.
-
-Not ported: ``init_from_mkf`` (map bootstrap); it raises.
 """
 
 from __future__ import annotations
@@ -18,15 +18,16 @@ from __future__ import annotations
 import torch
 
 from mcptam_tpu_torch.config import DEFAULT_MAPMAKER, LEVELS, MapMakerConfig
-from mcptam_tpu_torch.core.camera import CameraModel
+from mcptam_tpu_torch.core.camera import CameraModel, unproject
+from mcptam_tpu_torch.core.levels import level_zero_pos
 from mcptam_tpu_torch.core.se3 import SE3
-from mcptam_tpu_torch.map.builder import add_measurements, commit_mkf
+from mcptam_tpu_torch.map.builder import add_measurements, add_points, commit_mkf
 from mcptam_tpu_torch.map.epipolar import create_epipolar_points
 from mcptam_tpu_torch.map.keyframe import FrameFeatures
 from mcptam_tpu_torch.map.refind import refind_in_keyframes
 from mcptam_tpu_torch.map.state import (
     SRC_TRACKER, MapState, closest_kf, closest_mkf_distance, clone_tree,
-    count_mkfs, refresh_scene_depths,
+    count_mkfs, kf_cam_from_world, refresh_scene_depths,
 )
 
 
@@ -99,9 +100,43 @@ def _epi_pass(ms, cams, mkf_idx, feats, levels, region: str, cam_active,
     return ms, made_total
 
 
-def init_from_mkf(*args, **kwargs):
-    raise NotImplementedError("map bootstrap (init_from_mkf) is not ported; "
-                              "start from a map built by the caller")
+def init_from_mkf(ms: MapState, cams: CameraModel, feats: FrameFeatures,
+                  base_pose: SE3, mcfg: MapMakerConfig = DEFAULT_MAPMAKER,
+                  cap_per_level: int = 64):
+    """Bootstrap the map from the first MultiKeyFrame, which becomes the
+    fixed gauge anchor.  With C > 1 cameras, the strongest candidates of
+    camera c, coarse levels first, try an epipolar match in camera
+    (c+1) % C of the same MKF, each camera thinned against the points the
+    earlier ones made; with one camera they become points at
+    ``mcfg.init_depth``.  Updates ms in place; returns (ms, mkf_idx)."""
+    C = ms.cam_from_base.t.shape[0]
+    dev = ms.mkfs.valid.device
+    ms, mkf_idx, _ = commit_mkf(ms, feats, base_pose, fixed=True)
+    kcw = kf_cam_from_world(ms)
+    for level in range(LEVELS - 1, -1, -1):
+        for c in range(C):
+            xy, want = _level_candidates(feats, c, level, cap_per_level)
+            Q = xy.shape[0]
+            cam_arr = torch.full((Q,), c, dtype=torch.int32, device=dev)
+            lvl_arr = torch.full((Q,), level, dtype=torch.int32, device=dev)
+            if C > 1:
+                want = thin_candidates(ms, mkf_idx, cam_arr, lvl_arr, xy, want,
+                                       mcfg.thin_radius)
+                ms, _ = create_epipolar_points(
+                    ms, cams, src_mkf=mkf_idx.expand(Q), src_cam=cam_arr,
+                    tgt_mkf=mkf_idx.expand(Q),
+                    tgt_cam=torch.full((Q,), (c + 1) % C, dtype=torch.int32, device=dev),
+                    level=lvl_arr, xy_level=xy, want=want,
+                    n_hypotheses=mcfg.epi_max_hypotheses,
+                    corner_ambiguity=mcfg.epi_corner_ambiguity)
+            else:
+                pose_c = SE3(R=kcw.R[mkf_idx, c], t=kcw.t[mkf_idx, c])
+                rays = unproject(cams[c], level_zero_pos(xy, float(level)))
+                pos_w = pose_c.inv().apply(rays * mcfg.init_depth)
+                ms, _, _ = add_points(ms, cams, mkf_idx=mkf_idx, cam_idx=cam_arr,
+                                      level=lvl_arr, xy_level=xy, pos_w=pos_w,
+                                      want=want)
+    return refresh_scene_depths(ms), mkf_idx
 
 
 def record_tracker_measurements(ms: MapState, mkf_idx, result, enable=True):

@@ -3,6 +3,9 @@ src/KeyFrame.cc:177-193).
 
 Pyramid values are dyadic averages of the level-0 pixels, so for uint8
 frames every level is exact in f32 and matches the reference bit for bit.
+``half_sample`` runs the hand-written kernel ``csrc/halfsample.cu`` (K6/K7)
+on a CUDA tensor and its plain version on a CPU one; both sum in the same
+order, so they agree bit for bit on any f32 input.
 """
 
 from __future__ import annotations
@@ -11,10 +14,20 @@ import numpy as np
 import torch
 
 from mcptam_tpu_torch.config import LEVELS
+from mcptam_tpu_torch.ops.halfsample_kernel import half_sample_kernel
 
 
 def half_sample(img: torch.Tensor) -> torch.Tensor:
-    """2x2 average downsample of (...,H,W) -> (...,H//2,W//2)."""
+    """2x2 average downsample of (...,H,W) f32 -> (...,H//2,W//2)."""
+    if img.device.type == "cpu":
+        return half_sample_reference(img)
+    return half_sample_kernel(img.contiguous())
+
+
+def half_sample_reference(img: torch.Tensor) -> torch.Tensor:
+    """Plain version: (((a + b) + c) + d) * 0.25 over each 2x2 block, with
+    a = (0,0), b = (0,1), c = (1,0), d = (1,1); an odd last row or column
+    is dropped."""
     H, W = img.shape[-2], img.shape[-1]
     img = img[..., : H - H % 2, : W - W % 2]
     a = img[..., 0::2, 0::2]

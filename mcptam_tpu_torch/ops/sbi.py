@@ -41,6 +41,12 @@ def make_sbi(img_l0: torch.Tensor) -> torch.Tensor:
     return gaussian_blur_3(centered, sigma=DEFAULT_BLUR, radius=4)
 
 
+def sbi_zmssd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum of squared differences of already zero-mean templates
+    (broadcasts; reduces over the trailing two axes)."""
+    return torch.sum((a - b) ** 2, (-2, -1))
+
+
 def sbi_gradients(template: torch.Tensor):
     """Unscaled central-difference gradients, zero at the borders."""
     gx = torch.zeros_like(template)

@@ -12,9 +12,8 @@ Host reads, as in the reference: the live counts once per BA start, the
 accept flag once per integration, and the convergence flag of the chunk
 dispatched two ticks earlier, which travelled to pinned host memory with
 a non-blocking copy and has landed by then.  Nothing inside an LM chunk
-or an integration reads back.
-
-Not ported: map bootstrap (``init``); it raises NotImplementedError.
+or an integration reads back.  ``init`` bootstraps the map from the first
+MKF and reads its point count once.
 """
 
 from __future__ import annotations
@@ -37,10 +36,10 @@ from mcptam_tpu_torch.ba.bundle import (
 from mcptam_tpu_torch.config import (
     DEFAULT_BUNDLE, DEFAULT_MAPMAKER, BundleConfig, MapMakerConfig,
 )
-from mcptam_tpu_torch.map.mapmaker_core import integrate_mkf_device
+from mcptam_tpu_torch.map.mapmaker_core import init_from_mkf, integrate_mkf_device
 from mcptam_tpu_torch.map.refind import refind_in_keyframes
 from mcptam_tpu_torch.map.state import (
-    MapState, clone_tree, count_mkfs, move_bad_points_to_trash,
+    MapState, clone_tree, count_mkfs, count_points, move_bad_points_to_trash,
 )
 from mcptam_tpu_torch.system.timing import MapMakerTiming
 
@@ -150,8 +149,18 @@ class MapMaker:
 
     # -- tracker-facing API (MapMakerClientBase) ----------------------------
     def init(self, ms: MapState, feats, pose):
-        raise NotImplementedError("map bootstrap (MapMaker.init) is not ported; "
-                                  "start from a map built by the caller")
+        """Blocking map init from the first MKF (MapMaker::Init).  Returns
+        (ms, ok).  Init fails, leaving ``ms`` untouched, when fewer than
+        ``mcfg.min_map_points`` points could be made (snMinMapPoints,
+        src/MapMakerServerBase.cc:146-261); the caller retries on a later
+        frame."""
+        self._resolve_epi_budget(ms)
+        ms2, _ = init_from_mkf(clone_tree(ms), self.cams, feats, pose, self.mcfg)
+        if int(count_points(ms2)) < self.mcfg.min_map_points:
+            return ms, False
+        self.state = MM_INITIALIZING
+        self._reset_ba()
+        return ms2, True
 
     def add_mkf(self, feats, pose, tracker_result, cam_active=None):
         """Queue an MKF; it preempts BA at the next tick."""

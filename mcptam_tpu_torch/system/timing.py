@@ -4,6 +4,7 @@ mcptam_tpu/system/timing.py; msg/TrackerTiming.msg, msg/MapMakerTiming.msg)."""
 from __future__ import annotations
 
 import dataclasses
+import time
 
 
 @dataclasses.dataclass
@@ -35,3 +36,16 @@ class MapMakerTiming:
     kind: str = "none"  # "local" | "global" | "creation" | "creation-rejected"
     map_num_points: int = 0
     map_num_mkfs: int = 0
+
+
+class Stopwatch:
+    """Section timer; mirrors the reference's ros::WallTime bracketing."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def lap(self) -> float:
+        t = time.perf_counter()
+        dt = t - self.t0
+        self.t0 = t
+        return dt

@@ -57,7 +57,7 @@ class TrackerState:
     quality: torch.Tensor      # () int32 (QUALITY_*)
 
 
-def create_tracker_state(n_cams: int, device="cpu") -> TrackerState:
+def create_tracker_state(n_cams: int, device="cuda") -> TrackerState:
     R, C = SBI_SIZE
     z = functools.partial(torch.zeros, device=device)
     return TrackerState(

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's tracking slice and map-maker spend their time
-on one GPU.
+"""Where the PyTorch port's tracking slice, map-maker and live session
+spend their time on one GPU.
 
-    python3 scripts/profile_torch_slice.py [--frames 16]
+    python3 scripts/profile_torch_slice.py [--frames 16] [--stage all|live]
 
 Builds the scene of chip_smoke.py (4-camera 480x640 rig, ground-truth map
 with 2048 point slots, default TrackerConfig) on the card, warms the
@@ -22,7 +22,14 @@ System over one batch, then reports:
     would need a longer walk);
   * a profiler window over 10 LM steps of chip_smoke.py's LM problem (16
     poses, 2048 points, 8192 measurements): device ops per LM step and
-    the device-busy share.
+    the device-busy share;
+  * the live session of chip_smoke.py's phase 7 (process_frame from an
+    empty map, static mask and glare masking, the turning warm-up, the
+    forced loss and the return), every section of a frame timed to a
+    device synchronise (features, bootstrap, tracker step, candidate
+    filter, relocalisation attempt, map-maker tick), then a profiler
+    window over --frames frames of process_frame.  ``--stage live`` runs
+    only this part.
 Needs a CUDA device; prints the card and its power limit beside every
 number.
 """
@@ -46,6 +53,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--stage", choices=("all", "live"), default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: needs a CUDA device", file=sys.stderr)
@@ -65,6 +73,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     cams, cfb = make_rig(cs.C, cs.H, cs.W, spread_deg=25.0, device=dev)
     cams_sbi = make_sbi_cams(cams, cs.H, cs.W)
+    if args.stage == "live":
+        return profile_live(cams, cfb, cams_sbi, card, args.frames)
     ms, _ = build_groundtruth_map(
         cams, cfb, cs.H, cs.W, n_per_level=cs.N_PER_LEVEL,
         max_points=cs.MAX_POINTS, max_mkfs=cs.MAX_MKFS, max_meas=cs.MAX_MEAS)
@@ -149,7 +159,7 @@ def main() -> int:
 
     profile_mapmaker(cams, cfb, cams_sbi, card)
     profile_lm(dev, card)
-    return 0
+    return profile_live(cams, cfb, cams_sbi, card, args.frames)
 
 
 def _device_share(prof, wall):
@@ -275,6 +285,93 @@ def profile_lm(dev, card):
           f"device busy {busy:.1f} ms = {100 * busy / 1e3 / wall:.1f}%, "
           f"{ops / 10:.0f} device ops per LM step, on {card}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12,
+                                    max_name_column_width=60))
+    return 0
+
+
+def profile_live(cams, cfb, cams_sbi, card, n_window):
+    """Phase 7's live session with every section of process_frame timed to
+    a device synchronise, then a profiler window of process_frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mcptam_tpu_torch.config import MapMakerConfig, TrackerConfig
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import render_rig
+    from mcptam_tpu_torch.system import system as system_mod
+
+    dev = cfb.t.device
+    masks = torch.ones((cs.C, cs.H, cs.W), dtype=torch.bool, device=dev)
+    masks[:, cs.H - cs.MASK_BAND:, :] = False
+    sys_ = system_mod.System(cams, cfb, cams_sbi, cs.H, cs.W, tcfg=TrackerConfig(),
+                             mcfg=MapMakerConfig(), max_points=cs.MAX_POINTS,
+                             max_mkfs=cs.MAX_MKFS, max_meas=cs.MAX_MEAS, masks=masks)
+    sys_.set_var("GlareMasking", True)
+
+    def render(tangent):
+        pose = SE3.exp(torch.tensor(tangent, dtype=torch.float32, device=dev))
+        return torch.clamp(render_rig(cams, cfb, pose, cs.SEED, cs.H, cs.W),
+                           0, 255).to(torch.uint8)
+
+    walk = [render(cs.live_tangent(i)) for i in range(cs.N_LIVE_WALK)]
+    traj = [render(cs.traj_tangent(i)) for i in range(cs.N_RETURN + n_window)]
+    panel = torch.as_tensor(cs.panel_frame(), device=dev)
+
+    sections, depth = {}, []
+
+    def timed(name, fn):
+        def run(*a, **k):
+            if depth:                    # nested inside a timed section
+                return fn(*a, **k)
+            depth.append(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            depth.clear()
+            sections.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    filt = system_mod.filter_frame_candidates
+    sys_._features = timed("features (mask, glare)", sys_._features)
+    sys_.mapmaker.init = timed("bootstrap (MapMaker.init)", sys_.mapmaker.init)
+    sys_._device_step = timed("tracker step", sys_._device_step)
+    sys_._reloc_fn = timed("relocalisation attempt", sys_._reloc_fn)
+    sys_.mapmaker.step = timed("map-maker tick", sys_.mapmaker.step)
+    system_mod.filter_frame_candidates = timed("candidate filter", filt)
+    frames = walk + [panel] * 4 + traj[:cs.N_RETURN]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infos = [sys_.process_frame(f) for f in frames]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        system_mod.filter_frame_candidates = filt
+    print(f"live session: {len(frames)} process_frame frames, {wall:.2f} s wall with a "
+          f"synchronise per section ({len(frames) / wall:.2f} frames/s), "
+          f"{sum(i.added_mkf for i in infos)} MKFs added, "
+          f"{sum(i.relocalized for i in infos)} relocalised, on {card}:")
+    for name, v in sections.items():
+        print(f"  {name:28s} n={len(v):3d}  mean {np.mean(v):9.3f} ms  "
+              f"max {np.max(v):9.3f} ms  total {np.sum(v):9.1f} ms")
+
+    for name in ("_features", "_device_step", "_reloc_fn"):
+        delattr(sys_, name)
+    del sys_.mapmaker.init, sys_.mapmaker.step
+    window = traj[cs.N_RETURN:cs.N_RETURN + n_window]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in window:
+            sys_.process_frame(f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, ops = _device_share(prof, wall)
+    print(f"live window: {len(window)} process_frame frames, {wall * 1e3:.1f} ms wall "
+          f"under the profiler, device busy {busy:.1f} ms = {100 * busy / 1e3 / wall:.1f}%, "
+          f"{ops / len(window):.0f} device ops per frame, on {card}")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15,
                                     max_name_column_width=60))
     return 0
 

@@ -92,7 +92,7 @@ def jax_scene():
 
     cams, cfb = make_rig(C, H, W, spread_deg=25.0)
     cams_sbi = make_sbi_cams(cams, H, W)
-    p_cams, p_cfb = p_make_rig(C, H, W, spread_deg=25.0)
+    p_cams, p_cfb = p_make_rig(C, H, W, spread_deg=25.0, device="cpu")
     p_ms, _ = build_groundtruth_map(
         p_cams, p_cfb, H, W, n_per_level=N_PER_LEVEL, max_points=MAX_POINTS,
         max_mkfs=MAX_MKFS, max_meas=MAX_MEAS,
@@ -113,10 +113,10 @@ def jax_scene():
 def port_scene():
     """The JAX scene converted into the port's dataclasses (fresh copies)."""
     cams, cfb, cams_sbi, ms, frames = jax_scene()
-    return (convert.camera_from_numpy(np_get(cams)),
-            convert.se3_from_numpy(np_get(cfb)),
-            convert.camera_from_numpy(np_get(cams_sbi)),
-            convert.map_state_from_numpy(np_get(ms)),
+    return (convert.camera_from_numpy(np_get(cams), device="cpu"),
+            convert.se3_from_numpy(np_get(cfb), device="cpu"),
+            convert.camera_from_numpy(np_get(cams_sbi), device="cpu"),
+            convert.map_state_from_numpy(np_get(ms), device="cpu"),
             frames)
 
 
@@ -143,7 +143,7 @@ def mapping_scene():
     )
 
     cams, cfb, _, _, _ = jax_scene()
-    p_cams, p_cfb = p_make_rig(C, H, W, spread_deg=25.0)
+    p_cams, p_cfb = p_make_rig(C, H, W, spread_deg=25.0, device="cpu")
     p_ms, _ = build_groundtruth_map(
         p_cams, p_cfb, H, W, n_per_level=MAP_N_PER_LEVEL,
         max_points=MAX_POINTS, max_mkfs=MAX_MKFS, max_meas=MAX_MEAS)

@@ -40,12 +40,12 @@ from mcptam_tpu_torch.map.state import clone_tree
 def scene():
     """(JAX map, port map, JAX cams, port cams): four MKFs."""
     jcams, _, ms_np, feats = mapping_scene()
-    pcams = convert.camera_from_numpy(np_get(jcams))
-    ms = convert.map_state_from_numpy(ms_np)
+    pcams = convert.camera_from_numpy(np_get(jcams), device="cpu")
+    ms = convert.map_state_from_numpy(ms_np, device="cpu")
     from mcptam_tpu_torch.core.se3 import SE3
     from _torch_parity import MKF_TANGENTS
     for v, f in zip(MKF_TANGENTS, feats):
-        ms, _, ok = integrate_mkf(ms, pcams, convert.frame_features_from_numpy(f),
+        ms, _, ok = integrate_mkf(ms, pcams, convert.frame_features_from_numpy(f, device="cpu"),
                                   SE3.exp(t(v)))
         assert ok
     ms_np = convert.to_numpy(ms)

@@ -53,8 +53,8 @@ def problem():
     jprob, jcams = j_build(**KW)
     D = int(jb.max_obs_per_point(jprob))
     jprob = jb.attach_obs_table(jprob, D)
-    pprob = convert.bundle_problem_from_numpy(np_get(jprob))
-    pcams = convert.camera_from_numpy(np_get(jcams))
+    pprob = convert.bundle_problem_from_numpy(np_get(jprob), device="cpu")
+    pcams = convert.camera_from_numpy(np_get(jcams), device="cpu")
     return jprob, jcams, pprob, pcams
 
 
@@ -71,7 +71,7 @@ def _state_close(p, j):
 
 def test_build_matches_script():
     jprob, _ = j_build(**KW)
-    pprob, _ = p_build(**KW)
+    pprob, _ = p_build(**KW, device="cpu")
     j, p = np_get(jprob), convert.to_numpy(pprob)
     for name in ("m_pose_a", "m_pose_b", "m_point", "m_cam", "m_level",
                  "m_valid", "movable_a", "movable_b", "movable_pt"):
@@ -237,7 +237,7 @@ def test_convert_bundle_round_trip(problem):
     jsrc = np_get(jb.attach_obs_table(jprob, 4))
     for src, fn in ((jsrc, convert.bundle_problem_from_numpy),
                     (np_get(jb.create_lm_state(jprob)), convert.lm_state_from_numpy)):
-        back = convert.to_numpy(fn(src))
+        back = convert.to_numpy(fn(src, device="cpu"))
         for key, val in back.items():
             ref = getattr(src, key)
             if ref is None:

@@ -83,7 +83,7 @@ def test_mest(rng):
 
 def test_make_rig_matches():
     jc, jcfb = jmake_rig(3, 240, 320, spread_deg=25.0)
-    pc, pcfb = pmake_rig(3, 240, 320, spread_deg=25.0)
+    pc, pcfb = pmake_rig(3, 240, 320, spread_deg=25.0, device="cpu")
     ref = np_get(jc)
     for name, val in convert.to_numpy(pc).items():
         close(val, getattr(ref, name))
@@ -93,7 +93,7 @@ def test_make_rig_matches():
 
 def test_camera_project_unproject_derivs(rng):
     jc, _ = jmake_rig(2, 240, 320)
-    pc = convert.camera_from_numpy(np_get(jc))
+    pc = convert.camera_from_numpy(np_get(jc), device="cpu")
     v = rng.normal(size=(2, 500, 3)).astype(np.float32)
     v[..., 2] = np.abs(v[..., 2]) + 0.2
     uv_j, ok_j = jax.vmap(jcam.project)(jc, jnp.asarray(v))

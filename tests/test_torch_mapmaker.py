@@ -74,7 +74,7 @@ def _repaired_jax_builder():
 @pytest.fixture(scope="module")
 def scene():
     jcams, _, ms_np, feats = mapping_scene()
-    pcams = convert.camera_from_numpy(np_get(jcams))
+    pcams = convert.camera_from_numpy(np_get(jcams), device="cpu")
     return jcams, pcams, ms_np, feats
 
 
@@ -195,8 +195,8 @@ def _committed(scene, k=0):
     pose_v = MKF_TANGENTS[k]
     jms, jidx, _ = jax.jit(j_commit)(jax_map(ms_np), jax.tree_util.tree_map(
         jnp.asarray, feats[k]), JSE3.exp(jnp.asarray(pose_v)))
-    pms, pidx, _ = p_commit(convert.map_state_from_numpy(ms_np),
-                            convert.frame_features_from_numpy(feats[k]),
+    pms, pidx, _ = p_commit(convert.map_state_from_numpy(ms_np, device="cpu"),
+                            convert.frame_features_from_numpy(feats[k], device="cpu"),
                             SE3.exp(t(pose_v)))
     assert int(jidx) == int(pidx) == 1
     return jms, pms, pidx
@@ -228,7 +228,7 @@ def test_epipolar_match_matches(scene, corner):
     rules."""
     jcams, pcams, _, feats = scene
     jms, pms, idx = _committed(scene)
-    pfeats = convert.frame_features_from_numpy(feats[0])
+    pfeats = convert.frame_features_from_numpy(feats[0], device="cpu")
     xs, cams_, lv = [], [], []
     for level in (2, 1):
         for c in range(C):
@@ -265,7 +265,7 @@ def test_triangulate_and_budget_match(scene):
     np.testing.assert_array_equal(n(pok), np.asarray(jok))
     np.testing.assert_allclose(n(pp), np.asarray(jp), rtol=1e-4, atol=1e-4)
     cfb = jax_map(ms_np).cam_from_base
-    pcfb = convert.se3_from_numpy(np_get(cfb))
+    pcfb = convert.se3_from_numpy(np_get(cfb), device="cpu")
     for base in (0.0, 0.6, 3.0):
         assert (pepi.auto_hypothesis_budget(pcams, pcfb, kf_baseline=base)
                 == jepi.auto_hypothesis_budget(jcams, cfb, kf_baseline=base))
@@ -286,8 +286,8 @@ def test_integrate_with_tracker_result_matches(scene):
         jax_map(ms_np), jax.tree_util.tree_map(jnp.asarray, feats[0]),
         JSE3.exp(jnp.asarray(pose)), jnp.asarray(ca))
     pout = pmc.integrate_mkf_device(
-        convert.map_state_from_numpy(ms_np), pcams,
-        convert.frame_features_from_numpy(feats[0]), SE3.exp(t(pose)), pres, PMC(),
+        convert.map_state_from_numpy(ms_np, device="cpu"), pcams,
+        convert.frame_features_from_numpy(feats[0], device="cpu"), SE3.exp(t(pose)), pres, PMC(),
         cam_active=t(ca))
     assert int(pout[1]) == int(jout[1]) and bool(pout[3]) and bool(jout[3])
     assert int(pout[2]) == int(jout[2]) > 0              # large points
@@ -301,7 +301,7 @@ def test_need_new_mkf_queue_distance(scene):
     map-maker too: a pose far from the map but next to a queued MKF adds
     nothing, in both packages."""
     _, _, ms_np, _ = scene
-    jms, pms = jax_map(ms_np), convert.map_state_from_numpy(ms_np)
+    jms, pms = jax_map(ms_np), convert.map_state_from_numpy(ms_np, device="cpu")
     far = np.array([0.4, 0.0, 0.0, 0.0, 0.0, 0.0], np.float32)
     for qd in (None, 0.01):
         ja, js = jmc.need_new_mkf(jms, JSE3.exp(jnp.asarray(far)), jnp.asarray(6.0),
@@ -326,13 +326,13 @@ def test_mapmaker_tick_sequence_matches(scene):
     jmm = JMapMaker(cams=jcams, mcfg=JMC(), bcfg=JBC(recent_min_size=2, max_iterations=10))
     pmm = MapMaker(cams=pcams, mcfg=PMC(), bcfg=PBC(recent_min_size=2, max_iterations=10))
     jmm.state, pmm.state = J_RUNNING, MM_RUNNING
-    jms, pms = jax_map(ms_np), convert.map_state_from_numpy(ms_np)
+    jms, pms = jax_map(ms_np), convert.map_state_from_numpy(ms_np, device="cpu")
 
     def queue(k):
         v = MKF_TANGENTS[k]
         jmm.add_mkf(jax.tree_util.tree_map(jnp.asarray, feats[k]),
                     JSE3.exp(jnp.asarray(v)), None)
-        pmm.add_mkf(convert.frame_features_from_numpy(feats[k]), SE3.exp(t(v)), None)
+        pmm.add_mkf(convert.frame_features_from_numpy(feats[k], device="cpu"), SE3.exp(t(v)), None)
 
     expect = [
         ("creation", "none"), ("creation", "local"), ("local", "none"),

@@ -66,6 +66,6 @@ def test_se3_from_se2(rng):
     se2[:, 2:] = rng.normal(size=(C, 2)) * 0.8
     ref = jax.vmap(lambda s, cam: j_lift(tuple(s), cam, cam))(
         jnp.asarray(se2), cams_sbi)
-    pc = convert.camera_from_numpy(np_get(cams_sbi))
+    pc = convert.camera_from_numpy(np_get(cams_sbi), device="cpu")
     got = se3_from_se2(t(se2), pc, pc)
     np.testing.assert_allclose(n(got), np.asarray(ref), rtol=0, atol=1e-5)

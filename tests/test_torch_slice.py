@@ -76,7 +76,7 @@ def stepped():
                                do_actions=False)
 
     psys = _port_system()
-    psys.ts = convert.tracker_state_from_numpy(ts0)
+    psys.ts = convert.tracker_state_from_numpy(ts0, device="cpu")
     pts, pms, pscal, _ = psys._batch_step(
         psys.ts, psys.ms, t(frames[1:1 + B]), torch.ones(C, dtype=torch.bool))
     return dict(jts=np_get(jts), jms=np_get(jms), jscal=np.asarray(jscal),
@@ -134,7 +134,7 @@ def test_drain_matches(stepped):
 
 def test_process_frames_pipeline_and_gates():
     """process_frames drains every frame once, in order, through the
-    pipeline; it refuses an uninitialised map instead of skipping it; with
+    pipeline; on an uninitialised system it bootstraps the map; with
     AddingMKFs on, a frame far from the map's MKF queues a keyframe, which
     the next map-maker tick integrates or rejects."""
     frames = jax_scene()[-1]
@@ -149,12 +149,14 @@ def test_process_frames_pipeline_and_gates():
     assert not any(i.lost for i in out)
     assert all(i.n_found > 50 for i in out)
 
+    # an uninitialised system bootstraps its own map from the first frame
+    # (process_frames falls back to process_frame) instead of skipping it
     fresh = _port_system()
+    fresh.ms = p_create(H, W, C, fresh.cam_from_base, MAX_POINTS, MAX_MKFS, MAX_MEAS)
     fresh.initialized = False
-    with pytest.raises(NotImplementedError):
-        fresh.process_frames(t(frames[:1]))
-    with pytest.raises(NotImplementedError):
-        fresh.process_frame(t(frames[0]))
+    out = fresh.process_frames(t(frames[:1]))
+    assert fresh.initialized and [i.frame_id for i in out] == [0]
+    assert int(fresh.ms.mkfs.valid.sum()) == 1 and out[0].n_points >= 20
 
     # a far-away MKF pose makes the add heuristic fire on a good frame
     adder = _port_system()
@@ -251,7 +253,7 @@ def test_process_frames_with_mapmaker_matches():
     jsys.mapmaker.state = J_RUNNING
     jsys.ts = jsys.ts.replace(pose=JSE3.exp(jnp.asarray(_walk_tangent(WALK[0]))))
     psys = _port_system()
-    psys.ms = convert.map_state_from_numpy(ms_np)
+    psys.ms = convert.map_state_from_numpy(ms_np, device="cpu")
     psys.mapmaker.state = MM_RUNNING
     psys.ts.pose = SE3.exp(t(_walk_tangent(WALK[0])))
 
@@ -289,8 +291,8 @@ def test_builder_matches():
     cams, cfb, _, _, frames = jax_scene()
     jfeats = jax.jit(j_features)(jnp.asarray(frames[0]))
     pfeats = p_features(t(frames[0]))
-    pcams = convert.camera_from_numpy(np_get(cams))
-    pcfb = convert.se3_from_numpy(np_get(cfb))
+    pcams = convert.camera_from_numpy(np_get(cams), device="cpu")
+    pcfb = convert.se3_from_numpy(np_get(cfb), device="cpu")
     jms = j_create(H, W, C, cfb, 64, 2, 128)
     pms = p_create(H, W, C, pcfb, 64, 2, 128)
     jms, jidx, _ = jax.jit(jbuilder.commit_mkf, static_argnames="fixed")(
@@ -367,4 +369,4 @@ def test_convert_round_trip():
             np.testing.assert_array_equal(back, ref)
 
     for fn, src in cases:
-        check(convert.to_numpy(fn(src)), src)
+        check(convert.to_numpy(fn(src, device="cpu")), src)

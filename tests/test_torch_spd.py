@@ -64,7 +64,7 @@ def test_vector_rhs_keeps_its_shape():
 def schur():
     """(Sf, b) of the first LM step on build(4 poses, 128 points, 2 cams,
     512 measurements): n = 24 with the extrinsics fixed."""
-    prob, cams = build(n_poses=4, n_points=128, n_cams=2, sparse_k=512)
+    prob, cams = build(n_poses=4, n_points=128, n_cams=2, sparse_k=512, device="cpu")
     prob = pbundle.attach_obs_table(prob, int(pbundle.max_obs_per_point(prob)))
     got, orig = {}, pbundle.spd_solve
 
