@@ -10,9 +10,12 @@ Phases, each fatal on failure:
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its path gives it, with the tolerance stated, timed beside the
      plain version and, where one PyTorch call computes the same function,
-     beside that call: FAST, the window gather and ESM on tracking shapes,
+     beside that call: FAST (the four levels of a frame in one launch, and
+     each level alone), the window gather and ESM on tracking shapes,
      both SPD Cholesky solves at n = 96 and 288 on random SPD matrices and
-     on the reduced camera system of one LM step of phase 5's problem, the
+     on the reduced camera system of one LM step of phase 5's problem
+     (timed at both sizes beside torch.linalg.solve and
+     torch.linalg.cholesky + torch.cholesky_solve), the
      half-sample on random f32 and a rendered frame, the unaligned gather
      on 3840 windows of 29 and of 9 pixels, some overrunning the plane;
   4. the tracking slice: render the 4-camera 480x640 rig and build the
@@ -40,7 +43,9 @@ Phases, each fatal on failure:
      then the map is saved and loaded into a second System, and both track
      the next 8 frames to the same poses.
 
-Each path's launch counts are set to 0 just before it and read just after.
+Each path's launch counts are set to 0 just before it and read just after;
+the FAST front-end must launch once a frame (phase 6 adds the features the
+batch drain computes again for a keyframe add or a relocalisation).
 Prints one JSON line of kernel results, the card line, and last the line
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
 CUDA device is present or any phase fails.
@@ -184,22 +189,28 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def check_fast(images):
-    """K1 on the four pyramid levels of a rendered frame: exact."""
+    """K1 on the four pyramid levels of a rendered frame, all levels in one
+    launch and each level alone: exact.  Timed as the path calls it, one
+    launch for the four levels."""
     import torch
-    from mcptam_tpu_torch.ops.fast_kernel import fast_frontend, fast_frontend_reference
+    from mcptam_tpu_torch.ops.fast_kernel import (
+        fast_frontend, fast_frontend_levels, fast_frontend_reference,
+    )
     from mcptam_tpu_torch.ops.pyramid import build_pyramid
 
     pyr = [p.contiguous() for p in build_pyramid(images)]
+    levels = fast_frontend_levels(pyr)
     err = 0.0
     for lvl, p in enumerate(pyr):
-        got, ref = fast_frontend(p), fast_frontend_reference(p)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("score", "nm", "freq", "freq_nm"), got, ref):
-            if not torch.equal(a, b):
-                raise AssertionError(f"fast_frontend level {lvl} {name} differs: "
-                                     f"max |d| {(a - b).abs().max().item()}")
-            err = max(err, (a - b).abs().max().item())
-    ms = time_ms(lambda: [fast_frontend(p) for p in pyr])
+        ref = fast_frontend_reference(p)
+        for how, got in (("one launch", levels[lvl]), ("alone", fast_frontend(p))):
+            torch.cuda.synchronize()
+            for name, a, b in zip(("score", "nm", "freq", "freq_nm"), got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"fast_frontend level {lvl} ({how}) {name} differs: "
+                                         f"max |d| {(a - b).abs().max().item()}")
+                err = max(err, (a - b).abs().max().item())
+    ms = time_ms(lambda: fast_frontend_levels(pyr))
     plain_ms = time_ms(lambda: [fast_frontend_reference(p) for p in pyr])
     px = sum(p.numel() for p in pyr)
     # image in; score and nonmax out; two (C,64) histograms per level
@@ -371,8 +382,12 @@ def backward_error(A, x, b) -> float:
 def check_spd(sf, sf_b, gen):
     """K4 and K5 against the plain solve at n = 96 and 288 (m = 1) on
     random SPD, and at n = 96 on phase 5's Schur matrix.  Returns
-    {kernel: (max_abs_err, ms, plain ms, (bound ms, bound by), library ms)},
-    the times at n = 96."""
+    ({kernel: (max_abs_err, ms, plain ms, (bound ms, bound by), library
+    ms)} at n = 96, the path's size, and {kernel: [one dict a size]}:
+    kernel, plain and bound at n = 96 and 288 beside torch.linalg.solve
+    (the plain version, so also the library call) and
+    torch.linalg.cholesky + torch.cholesky_solve, a second yardstick the
+    port never calls)."""
     import torch
     from mcptam_tpu_torch.core.spd import spd_solve_kernel, spd_solve_reference
 
@@ -383,7 +398,7 @@ def check_spd(sf, sf_b, gen):
                       torch.randn(n, 1, generator=gen).to(dev)))
     cases.append((f"schur n={sf.shape[0]}", sf.contiguous(),
                   sf_b.reshape(-1, 1).contiguous()))
-    out = {}
+    out, sizes = {}, {}
     for blocked, kname in ((True, "spd_solve_blocked"), (False, "spd_solve_simple")):
         err_abs, times = 0.0, {}
         for label, A, b in cases:
@@ -401,18 +416,27 @@ def check_spd(sf, sf_b, gen):
                                      f"kappa {kappa:.3g}")
             err_abs = max(err_abs, d)
             if label.startswith("random"):
-                times[A.shape[0]] = (time_ms(lambda: spd_solve_kernel(A, b, blocked)),
-                                     time_ms(lambda: spd_solve_reference(A, b)))
+                times[A.shape[0]] = (
+                    time_ms(lambda: spd_solve_kernel(A, b, blocked)),
+                    time_ms(lambda: spd_solve_reference(A, b)),
+                    time_ms(lambda: torch.cholesky_solve(b, torch.linalg.cholesky(A))))
             print(f"  {kname} {label}: rel err vs plain {rel:.3g}, backward error "
                   f"{bwd:.3g} (plain {backward_error(A, x_plain, b):.3g}), kappa {kappa:.3g}")
-        for n, (k_ms, p_ms) in times.items():
-            print(f"  {kname} n={n} m=1: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
-        n = 96
-        # A, b in, x out; Cholesky n^3/3 and two triangular solves 2 n^2
-        bnd = bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n)
-        # the plain version is the library solve, torch.linalg.solve
-        out[kname] = (err_abs, times[96][0], times[96][1], bnd, times[96][1])
-    return out
+        sizes[kname] = []
+        for n, (k_ms, p_ms, chol_ms) in times.items():
+            # A, b in, x out; Cholesky n^3/3 and two triangular solves 2 n^2
+            b_ms, b_by = bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n)
+            # the plain version is the library solve, torch.linalg.solve
+            sizes[kname].append({"n": n, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "library_ms": p_ms,
+                                 "cholesky_solve_ms": chol_ms})
+            print(f"  {kname} n={n} m=1: kernel {k_ms:.4f} ms, plain = torch.linalg.solve "
+                  f"{p_ms:.4f} ms, cholesky + cholesky_solve {chol_ms:.4f} ms, bound "
+                  f"{b_ms:.6f} ms ({b_by})")
+        n96 = sizes[kname][0]
+        out[kname] = (err_abs, n96["ms"], n96["plain_ms"], (n96["bound_ms"], n96["bound_by"]),
+                      n96["library_ms"])
+    return out, sizes
 
 
 def phase_lm(dev, card):
@@ -505,6 +529,14 @@ def phase_mapping(cams, cfb, cams_sbi, frames, poses, card):
     sys_.vars["AddingMKFs"] = True
     mm.state = MM_RUNNING
     sys_.tick_every = TICK_EVERY
+    # a relocalisation attempt computes its frame's features again
+    reloc_calls, reloc_fn = [], sys_._reloc_fn
+
+    def counted_reloc(*a, **k):
+        reloc_calls.append(1)
+        return reloc_fn(*a, **k)
+
+    sys_._reloc_fn = counted_reloc
     torch.cuda.synchronize()
 
     backend.reset_launch_counts()
@@ -571,6 +603,15 @@ def phase_mapping(cams, cfb, cams_sbi, frames, poses, card):
     for k in ("fast_frontend", "gather_windows", "esm_align_all", "spd_solve_blocked"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the mapping path")
+    # K1 once a frame; the batch drain computes the features of each frame
+    # it adds as a keyframe or relocalises from once more
+    n_adds = sum(i.added_mkf for i in warm_infos) + sum(i.added_mkf for i in infos)
+    frames_run = N_WARMUP + N_POSES + n_adds + len(reloc_calls)
+    print(f"mapping: fast_frontend {launches['fast_frontend']} launches for {N_WARMUP + N_POSES} "
+          f"frames + {n_adds} keyframe adds + {len(reloc_calls)} relocalisation attempts")
+    if launches["fast_frontend"] != frames_run:
+        raise AssertionError(f"mapping: fast_frontend launched {launches['fast_frontend']} "
+                             f"times for {frames_run} feature computations")
     return launches
 
 
@@ -689,6 +730,9 @@ def phase_live(cams, cfb, cams_sbi, frames, poses, card):
               "gather_unaligned"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the live path")
+    if launches["fast_frontend"] != n_frames:      # K1 once a frame
+        raise AssertionError(f"live: fast_frontend launched {launches['fast_frontend']} "
+                             f"times for {n_frames} frames")
 
     # the map round trip: settle the map-maker, save, load into a second
     # System, give it the same tracker and scheduler state, and track on
@@ -804,7 +848,8 @@ def main() -> int:
         "half_sample": check_half_sample(frames[0].to(torch.float32)),
         "gather_unaligned": check_gather_unaligned(feats1, gen),
     }
-    results.update(check_spd(*schur_system(*lm_problem(dev)), gen))
+    spd_results, spd_sizes = check_spd(*schur_system(*lm_problem(dev)), gen)
+    results.update(spd_results)
     for k, (err, ms_k, ms_p, (b_ms, b_by), lib_ms) in results.items():
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {k}: max_abs_err {err} kernel {ms_k:.4f} ms plain {ms_p:.4f} ms "
@@ -845,6 +890,9 @@ def main() -> int:
     for k in ("fast_frontend", "gather_windows", "esm_align_all", "half_sample"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the tracking path")
+    if launches["fast_frontend"] != N_POSES:       # K1 once a frame
+        raise AssertionError(f"tracking: fast_frontend launched {launches['fast_frontend']} "
+                             f"times for {N_POSES} frames")
 
     # second pass over the closed trajectory, timed after the warm first
     t0 = time.perf_counter()
@@ -878,7 +926,8 @@ def main() -> int:
          "replaces": KERNELS[k][1], "launches": launches[k],
          "max_abs_err": results[k][0], "ms": results[k][1],
          "plain_ms": results[k][2], "bound_ms": results[k][3][0],
-         "bound_by": results[k][3][1], "library_ms": results[k][4]}
+         "bound_by": results[k][3][1], "library_ms": results[k][4],
+         **({"sizes": spd_sizes[k]} if k in spd_sizes else {})}
         for k in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,10 @@ mcptam_tpu/core/spd.py).
 ``csrc/spd.cu``: the blocked variant (K4) by default, the unblocked one
 (K5) under ``MCPTAM_SPD_KERNEL=simple``, as the reference picks its Pallas
 kernel.  On a CPU tensor it takes ``spd_solve_reference``, the stock solver,
-as the reference does off the TPU.  The kernel keeps the packed factor in
-one block's shared memory and raises on a system too large for it.
+as the reference does off the TPU.  Both kernels keep the packed factor in
+one block's shared memory and raise on a system too large for it: n <= 339
+at m = 1 for K4, n <= 340 for K5, whose single right-hand side lives in
+registers.
 """
 
 from __future__ import annotations
@@ -20,10 +22,13 @@ from mcptam_tpu_torch import backend
 MAX_SHARED_BYTES = 232448  # 227 KB: the most shared memory one block may use
 
 
-def shared_bytes(n: int, m: int) -> int:
-    """Shared memory the kernel needs: the pivot scale (padded to 16 B),
-    the packed factor and the rhs."""
-    return 4 * (4 + n * (n + 1) // 2 + n * m)
+def shared_bytes(n: int, m: int, blocked: bool = True) -> int:
+    """Shared memory a kernel needs.  K4: the pivot scale (padded to 16 B),
+    the packed factor and the rhs.  K5: the packed factor, and the rhs
+    only when m > 1 (one rhs is kept in registers)."""
+    if blocked:
+        return 4 * (4 + n * (n + 1) // 2 + n * m)
+    return 4 * (n * (n + 1) // 2 + (n * m if m > 1 else 0))
 
 
 def kernel_name() -> str:
@@ -53,9 +58,10 @@ def spd_solve_kernel(A: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"spd_solve_kernel: bad shapes {tuple(A.shape)}, "
                          f"{tuple(B.shape)}")
     m = B.shape[1]
-    if n == 0 or m == 0 or shared_bytes(n, m) > MAX_SHARED_BYTES:
+    need = shared_bytes(n, m, blocked)
+    if n == 0 or m == 0 or need > MAX_SHARED_BYTES:
         raise ValueError(f"spd_solve_kernel: n={n}, m={m} needs "
-                         f"{shared_bytes(n, m)} B of shared memory, above "
+                         f"{need} B of shared memory, above "
                          f"the {MAX_SHARED_BYTES} B a block may use")
     from mcptam_tpu_torch.csrc._build import check, load
 

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; each returns a cudaError_t as int
 ENTRY_POINTS = {
-    "mcptam_fast_frontend": [_P] * 6 + [_I] * 3 + [_P],
+    "mcptam_fast_frontend_levels": [_P] * 2 + [_I] * 2 + [_P] * 2,
     "mcptam_gather_windows_f32": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_gather_windows_u8": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_esm_align_all": [_P] * 6 + [_I] * 2 + [_P],

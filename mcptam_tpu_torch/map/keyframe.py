@@ -19,7 +19,7 @@ from mcptam_tpu_torch.ops.atlas import build_atlas
 from mcptam_tpu_torch.ops.fast import (
     adaptive_threshold_from_freq, cutoff_from_freq, select_corners_cutoff,
 )
-from mcptam_tpu_torch.ops.fast_kernel import fast_frontend
+from mcptam_tpu_torch.ops.fast_kernel import fast_frontend_levels
 from mcptam_tpu_torch.ops.pyramid import build_pyramid
 from mcptam_tpu_torch.ops.sbi import make_sbi, sbi_gradients
 
@@ -88,9 +88,9 @@ def make_frame_features(images: torch.Tensor, static_masks=None,
             m = g if m is None else m & g
         masks.append(m)
 
-    # FAST score + 3x3 nonmax + cumulative threshold histograms, one
-    # front-end pass per level (the CUDA kernel on the card)
-    fronts = [fast_frontend(p.contiguous()) for p in pyr]
+    # FAST score + 3x3 nonmax + cumulative threshold histograms of every
+    # level (one CUDA kernel launch on the card)
+    fronts = fast_frontend_levels([p.contiguous() for p in pyr])
 
     thresholds, corner_maps, counts = [], [], []
     for l in range(LEVELS):

@@ -1,12 +1,15 @@
 """FAST-10 front-end: score + 3x3 nonmax + threshold histograms in one pass
 (port of mcptam_tpu/ops/fast_pallas.py::fast_frontend).
 
-A CUDA tensor launches the hand-written kernel ``csrc/fast.cu``; a CPU
-tensor takes ``fast_frontend_reference``, the plain PyTorch version with
-identical outputs.  There is no other route.
+CUDA tensors launch the hand-written kernel ``csrc/fast.cu``, once for all
+the pyramid levels of a frame (``fast_frontend_levels``); CPU tensors take
+``fast_frontend_reference``, the plain PyTorch version with identical
+outputs.  There is no other route.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -14,6 +17,13 @@ from mcptam_tpu_torch import backend
 from mcptam_tpu_torch.ops.fast import fast_score_image, nonmax_3x3
 
 NBINS = 64  # freq[t] for t in [0, 64): covers the 5..60 adaptive range
+MAX_LEVELS = 8  # levels one launch takes (csrc/fast.cu)
+# int32 scratch per (level, camera): bin counts of score and nm (65 each),
+# the last-block ticket and a pad.  The kernel leaves it zero.
+SCRATCH_INTS = 2 * (NBINS + 1) + 2
+
+# (device index, stream) -> the zeroed scratch the kernel reuses
+_SCRATCH: dict = {}
 
 
 def _cumfreq(x: torch.Tensor) -> torch.Tensor:
@@ -32,36 +42,70 @@ def fast_frontend_reference(img: torch.Tensor):
     return score, nm, _cumfreq(score), _cumfreq(nm)
 
 
-def fast_frontend(img: torch.Tensor):
-    """(C,H,W) f32 image -> (score (C,H,W), nm (C,H,W), freq (C,NBINS),
-    freq_nm (C,NBINS)).
+def _scratch(device: torch.device, stream: int, n_ints: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n_ints:
+        buf = torch.zeros(n_ints, dtype=torch.int32, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def fast_frontend_levels(levels) -> list:
+    """Pyramid levels, each (C,H_l,W_l) f32 -> per level (score (C,H_l,W_l),
+    nm (C,H_l,W_l), freq (C,NBINS), freq_nm (C,NBINS)).
 
     score/nm: FAST-10 max-threshold score and its strict 3x3 nonmax
     (earlier raster pixel wins ties); freq[c, t] = #(score > t - 1e-6) and
-    freq_nm the same over nm, over the in-image pixels."""
-    if img.device.type == "cpu":
-        return fast_frontend_reference(img)
-    if img.device.type != "cuda":
-        raise ValueError(f"fast_frontend: unsupported device {img.device}")
-    if img.dtype != torch.float32 or img.ndim != 3 or not img.is_contiguous():
-        raise ValueError("fast_frontend takes a contiguous (C,H,W) float32 "
-                         f"tensor, got {img.dtype} {tuple(img.shape)}")
+    freq_nm the same over nm, over the in-image pixels.  On the card one
+    launch computes every level; the outputs are views of one buffer."""
+    levels = list(levels)
+    if all(p.device.type == "cpu" for p in levels):
+        return [fast_frontend_reference(p) for p in levels]
+    dev = levels[0].device
+    if dev.type != "cuda" or any(p.device != dev for p in levels):
+        raise ValueError("fast_frontend_levels: every level on one CUDA device, got "
+                         f"{[str(p.device) for p in levels]}")
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"fast_frontend_levels takes 1..{MAX_LEVELS} levels, "
+                         f"got {len(levels)}")
+    C = levels[0].shape[0]
+    for p in levels:
+        if (p.dtype != torch.float32 or p.ndim != 3 or p.shape[0] != C
+                or not p.is_contiguous() or p.numel() == 0):
+            raise ValueError("fast_frontend_levels takes contiguous non-empty (C,H,W) "
+                             f"float32 levels of one C, got {p.dtype} {tuple(p.shape)}")
     from mcptam_tpu_torch.csrc._build import check, load
 
     lib = load()
-    C, H, W = img.shape
-    score = torch.empty_like(img)
-    nm = torch.empty_like(img)
-    freq = torch.empty((C, NBINS), dtype=torch.float32, device=img.device)
-    freq_nm = torch.empty_like(freq)
-    # per-camera bin counts of score and nm, zeroed by the entry point
-    hist = torch.empty((2, C, NBINS + 1), dtype=torch.int32, device=img.device)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = lib.mcptam_fast_frontend(
-        img.data_ptr(), score.data_ptr(), nm.data_ptr(), freq.data_ptr(),
-        freq_nm.data_ptr(), hist.data_ptr(), C, H, W, stream,
-    )
-    check(err, "fast_frontend")
+    L = len(levels)
+    n_px = sum(p.numel() for p in levels)
+    buf = torch.empty(2 * n_px + 2 * L * C * NBINS, dtype=torch.float32, device=dev)
+    o, outs, ptrs, dims = 0, [], [], []
+    for p in levels:
+        score = buf[o:o + p.numel()].view(p.shape)
+        nm = buf[o + p.numel():o + 2 * p.numel()].view(p.shape)
+        o += 2 * p.numel()
+        outs.append([score, nm])
+    for out in outs:
+        for _ in range(2):                    # freq, freq_nm
+            out.append(buf[o:o + C * NBINS].view(C, NBINS))
+            o += C * NBINS
+    for p, out in zip(levels, outs):
+        ptrs += [p.data_ptr()] + [t.data_ptr() for t in out]
+        dims += [p.shape[1], p.shape[2]]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = _scratch(dev, stream, L * C * SCRATCH_INTS)
+    c_ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    err = lib.mcptam_fast_frontend_levels(ctypes.addressof(c_ptrs), ctypes.addressof(c_dims),
+                                          L, C, scratch.data_ptr(), stream)
+    check(err, "fast_frontend_levels")
     backend.LAUNCHES["fast_frontend"] += 1
-    return score, nm, freq, freq_nm
+    return [tuple(out) for out in outs]
 
+
+def fast_frontend(img: torch.Tensor):
+    """One level: (C,H,W) f32 image -> (score, nm, freq, freq_nm), as
+    ``fast_frontend_levels`` computes them (one launch on the card)."""
+    return fast_frontend_levels([img])[0]

@@ -11,9 +11,10 @@ System over one batch, then reports:
     synchronise (features, sbi, motion, pvs, coarse, fine, pose,
     finalize, stats + add heuristic);
   * a torch.profiler window over --frames frames of process_frames:
-    the top operators by device time, device kernels launched per frame,
-    and the device-busy share of the window (summed kernel time over wall
-    time; one stream, so kernels do not overlap);
+    the top operators by device time, device kernels launched per frame
+    (and how many of them are the FAST front-end's), and the device-busy
+    share of the window (summed kernel time over wall time; one stream,
+    so kernels do not overlap);
   * the map-maker: chip_smoke.py's mapping warm-up (the rig walks 0.3 m
     sideways and back, keyframes are added and integrated) with every
     scheduler tick timed to a device synchronise and sorted by what it
@@ -151,7 +152,8 @@ def main() -> int:
     print(f"profiled window: {n_frames} frames in {wall * 1e3:.1f} ms wall "
           f"({n_frames / wall:.2f} frames/s under the profiler) on {card}")
     print(f"device busy {dev_us / 1e3:.1f} ms = {100 * dev_us / 1e6 / wall:.1f}% "
-          f"of the window; {kernels / n_frames:.0f} device ops per frame")
+          f"of the window; {kernels / n_frames:.0f} device ops per frame; "
+          f"{_fast_ops(on_dev) / n_frames:.2f} of them the FAST front-end's")
     print(events.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=60))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15,
@@ -160,6 +162,11 @@ def main() -> int:
     profile_mapmaker(cams, cfb, cams_sbi, card)
     profile_lm(dev, card)
     return profile_live(cams, cfb, cams_sbi, card, args.frames)
+
+
+def _fast_ops(on_dev) -> int:
+    """Device ops of the FAST front-end (csrc/fast.cu's kernels)."""
+    return sum(e.count for e in on_dev if "fast_levels_kernel" in e.key)
 
 
 def _device_share(prof, wall):
@@ -368,9 +375,11 @@ def profile_live(cams, cfb, cams_sbi, card, n_window):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, ops = _device_share(prof, wall)
+    on_dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     print(f"live window: {len(window)} process_frame frames, {wall * 1e3:.1f} ms wall "
           f"under the profiler, device busy {busy:.1f} ms = {100 * busy / 1e3 / wall:.1f}%, "
-          f"{ops / len(window):.0f} device ops per frame, on {card}")
+          f"{ops / len(window):.0f} device ops per frame "
+          f"({_fast_ops(on_dev) / len(window):.2f} FAST front-end), on {card}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15,
                                     max_name_column_width=60))
     return 0
