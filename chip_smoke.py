@@ -11,8 +11,10 @@ Phases, each fatal on failure:
      shapes its path gives it, with the tolerance stated, timed beside the
      plain version and, where one PyTorch call computes the same function,
      beside that call: FAST (the four levels of a frame in one launch, and
-     each level alone), the window gather and ESM on tracking shapes,
-     both SPD Cholesky solves at n = 96 and 288 on random SPD matrices and
+     each level alone), the window gather on tracking shapes and at the
+     map-maker's largest call (the epipolar pass's 26x26 uint8 source
+     windows), ESM at the tracker's shape (4 cameras, 9 iterations) and
+     the relocaliser's (1 camera, 12 iterations), both SPD Cholesky solves at n = 96 and 288 on random SPD matrices and
      on the reduced camera system of one LM step of phase 5's problem
      (timed at both sizes beside torch.linalg.solve and
      torch.linalg.cholesky + torch.cholesky_solve), the
@@ -45,7 +47,8 @@ Phases, each fatal on failure:
 
 Each path's launch counts are set to 0 just before it and read just after;
 the FAST front-end must launch once a frame (phase 6 adds the features the
-batch drain computes again for a keyframe add or a relocalisation).
+batch drain computes again for a keyframe add or a relocalisation).  Phase
+6 also records the shapes of every window-gather call it makes.
 Prints one JSON line of kernel results, the card line, and last the line
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
 CUDA device is present or any phase fails.
@@ -93,6 +96,12 @@ RESUME_TOL, MASK_BAND = 1e-5, 32
 # loss pose leaves relocalisation to do the recovery
 LIVE_YAW = 0.5
 N_GATHER_WINDOWS = 3840   # 4 cams x (512 + 256 + 128 + 64) candidates
+# the map-maker's largest window gather: an integration's "other" epipolar
+# pass stacks the cameras' 32 strongest candidates of a level
+# (map/mapmaker_core.py::integrate_mkf, cap_per_level) and gathers a 26x26
+# source window for each of MapMakerConfig.epi_max_hypotheses hypotheses
+EPI_CAP_PER_LEVEL, EPI_WINDOW = 32, 26
+RELOC_ITERATIONS = 12     # tracker/reloc.py's ESM call on one camera
 # the H100 SXM's published peaks: HBM bytes/s and f32 operations/s outside
 # the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -222,8 +231,12 @@ def check_fast(images):
 def check_gather(feats, atlas_u8, gen):
     """K2 for the fine (K=1000, G=35) and coarse (K=60, G=31) search
     regions on the packed f32 atlas, and source windows (G=26) on the
-    uint8 keyframe atlas: exact."""
+    uint8 keyframe atlas: exact.  Timed at the tracker's fine search
+    (K=1000, G=35, f32) and at the map-maker's largest call, the epipolar
+    pass's source windows (K = C x EPI_CAP_PER_LEVEL x hypotheses, G=26,
+    uint8).  Returns the tracker's row and a row for each shape."""
     import torch
+    from mcptam_tpu_torch.config import MapMakerConfig
     from mcptam_tpu_torch.ops.gather_kernel import gather_windows, gather_windows_reference
     from mcptam_tpu_torch.ops.patch import pack_corner_atlas
 
@@ -231,8 +244,10 @@ def check_gather(feats, atlas_u8, gen):
     plane = packed.reshape(-1, packed.shape[-1])
     plane_u8 = atlas_u8.reshape(-1, atlas_u8.shape[-1])
     dev = plane.device
-    cases = [(plane, 1000, 35), (plane, 60, 31), (plane_u8, 1000, 26)]
-    err = 0.0
+    k_epi = C * EPI_CAP_PER_LEVEL * MapMakerConfig().epi_max_hypotheses
+    cases = [(plane, 1000, 35), (plane, 60, 31), (plane_u8, 1000, 26),
+             (plane_u8, k_epi, EPI_WINDOW)]
+    err, sizes = 0.0, []
     for pl, K, G in cases:
         # starts spill past every edge so the clamp is exercised too
         rows = torch.randint(-8, pl.shape[0] - G + 8, (K,), generator=gen).to(dev)
@@ -243,32 +258,52 @@ def check_gather(feats, atlas_u8, gen):
         if not torch.equal(got, ref):
             raise AssertionError(f"gather_windows {pl.dtype} K={K} G={G} differs")
         err = max(err, (got - ref).abs().max().item())
-    rows = torch.randint(0, plane.shape[0] - 35, (1000,), generator=gen).to(dev)
-    cols = torch.randint(0, plane.shape[1] - 35, (1000,), generator=gen).to(dev)
-    ms = time_ms(lambda: gather_windows(plane, rows, cols, 35))
-    plain_ms = time_ms(lambda: gather_windows_reference(plane, rows, cols, 35))
-    # the windows' pixels in and out, the starts in
-    bnd = bound(1000 * 35 * 35 * 4 * 2 + 1000 * 2 * 8, 0)
-    return err, ms, plain_ms, bnd, None
+        if (K, G) in ((1000, 35), (k_epi, EPI_WINDOW)):
+            rows, cols = rows.clamp(0, pl.shape[0] - G), cols.clamp(0, pl.shape[1] - G)
+            ms_k = time_ms(lambda: gather_windows(pl, rows, cols, G))
+            ms_p = time_ms(lambda: gather_windows_reference(pl, rows, cols, G))
+            # the windows' pixels in and out, the starts in
+            b_ms, b_by = bound(K * G * G * pl.element_size() * 2 + K * 2 * 8, 0)
+            sizes.append({"K": K, "G": G, "dtype": str(pl.dtype).replace("torch.", ""),
+                          "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None})
+            print(f"  gather_windows K={K} G={G} {pl.dtype}: kernel {ms_k:.4f} ms, plain "
+                  f"{ms_p:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    t = sizes[0]
+    return (err, t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]), None), sizes
 
 
 def check_esm(feats_prev, feats_cur):
-    """K3 for C=4 on real SBI pairs: se2 within ESM_TOL."""
+    """K3 on real SBI pairs at the tracker's shape (C=4, 9 iterations) and
+    the relocaliser's (camera 0 of the same pair, 12 iterations): se2
+    within ESM_TOL.  Returns the tracker's row and a row for each shape."""
     import torch
     from mcptam_tpu_torch.ops.sbi_kernel import esm_align, esm_align_all
 
-    args = (feats_prev.sbi, feats_cur.sbi, feats_cur.sbi_gx, feats_cur.sbi_gy)
-    se2_k, score_k = esm_align_all(*args)
-    se2_p, score_p = esm_align(*args)
-    torch.cuda.synchronize()
-    err = (se2_k - se2_p).abs().max().item()
-    if not err <= ESM_TOL or not torch.isfinite(score_k).all():
-        raise AssertionError(f"esm_align_all se2 differs by {err} > {ESM_TOL}")
-    ms = time_ms(lambda: esm_align_all(*args))
-    plain_ms = time_ms(lambda: esm_align(*args))
-    C_, R_, W_ = args[0].shape
-    bnd = bound(4 * C_ * R_ * W_ * 4 + C_ * 5 * 4, C_ * R_ * W_ * 9 * ESM_OPS_PER_PIXEL)
-    return err, ms, plain_ms, bnd, None
+    pair = (feats_prev.sbi, feats_cur.sbi, feats_cur.sbi_gx, feats_cur.sbi_gy)
+    err, sizes = 0.0, []
+    for args, iters in ((pair, 9), (tuple(a[:1].contiguous() for a in pair),
+                                    RELOC_ITERATIONS)):
+        se2_k, score_k = esm_align_all(*args, n_iterations=iters)
+        se2_p, score_p = esm_align(*args, n_iterations=iters)
+        torch.cuda.synchronize()
+        e = (se2_k - se2_p).abs().max().item()
+        if not e <= ESM_TOL or not torch.isfinite(score_k).all():
+            raise AssertionError(f"esm_align_all C={args[0].shape[0]} {iters} iterations: "
+                                 f"se2 differs by {e} > {ESM_TOL}")
+        err = max(err, e)
+        ms_k = time_ms(lambda: esm_align_all(*args, n_iterations=iters))
+        ms_p = time_ms(lambda: esm_align(*args, n_iterations=iters))
+        C_, R_, W_ = args[0].shape
+        b_ms, b_by = bound(4 * C_ * R_ * W_ * 4 + C_ * 5 * 4,
+                           C_ * R_ * W_ * iters * ESM_OPS_PER_PIXEL)
+        sizes.append({"C": C_, "iterations": iters, "max_abs_err": e, "ms": ms_k,
+                      "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None})
+        print(f"  esm_align_all C={C_} {iters} iterations: se2 err {e:.3g}, kernel "
+              f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    t = sizes[0]
+    return (err, t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]), None), sizes
 
 
 def check_half_sample(frame):
@@ -501,6 +536,27 @@ def phase_lm(dev, card):
     return launches
 
 
+class GatherShapes:
+    """Counts window-gather calls by (K, G, dtype) from its creation until
+    stop(): it wraps the name ops/batch_patch.py calls, so the kernel's own
+    launch count is untouched."""
+
+    def __init__(self):
+        from mcptam_tpu_torch.ops import batch_patch
+        self.mod, self.orig, self.seen = batch_patch, batch_patch.gather_windows, {}
+
+        def counted(plane, rows, cols, G):
+            key = (int(rows.shape[0]), int(G), str(plane.dtype).replace("torch.", ""))
+            self.seen[key] = self.seen.get(key, 0) + 1
+            return self.orig(plane, rows, cols, G)
+
+        batch_patch.gather_windows = counted
+
+    def stop(self) -> dict:
+        self.mod.gather_windows = self.orig
+        return self.seen
+
+
 def phase_mapping(cams, cfb, cams_sbi, frames, poses, card):
     """Phase 6.  Returns the launch counts of the mapping run."""
     import torch
@@ -540,6 +596,7 @@ def phase_mapping(cams, cfb, cams_sbi, frames, poses, card):
     torch.cuda.synchronize()
 
     backend.reset_launch_counts()
+    gathers = GatherShapes()
     t0 = time.perf_counter()
     warm_infos = []
     for i in range(0, N_WARMUP, B):
@@ -574,6 +631,11 @@ def phase_mapping(cams, cfb, cams_sbi, frames, poses, card):
         sys_.ms = mm.step(sys_.ms)
     torch.cuda.synchronize()
     launches = backend.kernel_report()
+    seen = gathers.stop()
+    biggest = max(seen, key=lambda k: k[0] * k[1] * k[1] * (4 if k[2] == "float32" else 1))
+    epi = max((k for k in seen if k[1] == EPI_WINDOW and k[2] == "uint8"), default=None)
+    print(f"mapping: gather_windows calls by (K, G, dtype): {dict(sorted(seen.items()))}; "
+          f"largest by bytes {biggest}; largest epipolar source gather {epi}")
 
     infos = [by_fid[f] for f in sorted(by_fid)]
     if [i.frame_id for i in infos] != list(range(N_WARMUP, N_WARMUP + N_POSES)):
@@ -817,7 +879,7 @@ def main() -> int:
     load()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path}")
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill")):
             print(f"  ptxas: {line.strip()}")
 
     # ---- scene: rig, ground-truth map and trajectory frames, on the card
@@ -841,15 +903,16 @@ def main() -> int:
     # ---- 3. kernels against their plain versions, at slice shapes
     gen = torch.Generator().manual_seed(0)
     feats1 = make_frame_features(frames[1])
-    results = {
-        "fast_frontend": check_fast(frames[0].to(torch.float32)),
-        "gather_windows": check_gather(feats0, ms.mkfs.atlas, gen),
-        "esm_align_all": check_esm(make_frame_features(frames[0]), feats1),
-        "half_sample": check_half_sample(frames[0].to(torch.float32)),
-        "gather_unaligned": check_gather_unaligned(feats1, gen),
-    }
+    sizes = {}
+    results = {"fast_frontend": check_fast(frames[0].to(torch.float32))}
+    results["gather_windows"], sizes["gather_windows"] = check_gather(feats0, ms.mkfs.atlas, gen)
+    results["esm_align_all"], sizes["esm_align_all"] = check_esm(
+        make_frame_features(frames[0]), feats1)
+    results["half_sample"] = check_half_sample(frames[0].to(torch.float32))
+    results["gather_unaligned"] = check_gather_unaligned(feats1, gen)
     spd_results, spd_sizes = check_spd(*schur_system(*lm_problem(dev)), gen)
     results.update(spd_results)
+    sizes.update(spd_sizes)
     for k, (err, ms_k, ms_p, (b_ms, b_by), lib_ms) in results.items():
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {k}: max_abs_err {err} kernel {ms_k:.4f} ms plain {ms_p:.4f} ms "
@@ -870,7 +933,7 @@ def main() -> int:
         infos += sys_.process_frames(b)
     infos += sys_.flush_pipeline()
     torch.cuda.synchronize()
-    launches = backend.kernel_report()
+    launches_track = launches = backend.kernel_report()
 
     ids = [i.frame_id for i in infos]
     if ids != list(range(N_POSES)):
@@ -916,10 +979,13 @@ def main() -> int:
     launches_map = phase_mapping(cams, cfb, cams_sbi, frames, poses, card)
 
     # ---- 7. live: process_frame from an empty map
-    launches = phase_live(cams, cfb, cams_sbi, frames, poses, card)
+    launches_live = phase_live(cams, cfb, cams_sbi, frames, poses, card)
+    launches = dict(launches_live)
     # BA's kernels are read from their own paths: K4 from mapping, K5 from LM
     launches["spd_solve_blocked"] = launches_map["spd_solve_blocked"]
     launches["spd_solve_simple"] = launches_k5
+    by_phase = {"tracking": launches_track, "lm": {"spd_solve_simple": launches_k5},
+                "mapping": launches_map, "live": launches_live}
 
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -927,7 +993,8 @@ def main() -> int:
          "max_abs_err": results[k][0], "ms": results[k][1],
          "plain_ms": results[k][2], "bound_ms": results[k][3][0],
          "bound_by": results[k][3][1], "library_ms": results[k][4],
-         **({"sizes": spd_sizes[k]} if k in spd_sizes else {})}
+         "launches_by_phase": {p: c[k] for p, c in by_phase.items() if c.get(k)},
+         **({"sizes": sizes[k]} if k in sizes else {})}
         for k in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

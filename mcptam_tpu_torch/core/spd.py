@@ -5,10 +5,11 @@ mcptam_tpu/core/spd.py).
 ``csrc/spd.cu``: the blocked variant (K4) by default, the unblocked one
 (K5) under ``MCPTAM_SPD_KERNEL=simple``, as the reference picks its Pallas
 kernel.  On a CPU tensor it takes ``spd_solve_reference``, the stock solver,
-as the reference does off the TPU.  Both kernels keep the packed factor in
-one block's shared memory and raise on a system too large for it: n <= 339
-at m = 1 for K4, n <= 340 for K5, whose single right-hand side lives in
-registers.
+as the reference does off the TPU.  Both kernels keep the packed factor and
+the right-hand sides in one block's shared memory and raise on a system
+too large for it: n <= 322 at m = 1 for K4, which also keeps its current
+panel there (transposed, PB x (n - PB + 32)) beside the panel's diagonal
+block, and n <= 339 for K5.
 """
 
 from __future__ import annotations
@@ -20,15 +21,19 @@ import torch
 from mcptam_tpu_torch import backend
 
 MAX_SHARED_BYTES = 232448  # 227 KB: the most shared memory one block may use
+K4_PB = 16  # K4's panel width (csrc/spd.cu PB)
 
 
 def shared_bytes(n: int, m: int, blocked: bool = True) -> int:
-    """Shared memory a kernel needs.  K4: the pivot scale (padded to 16 B),
-    the packed factor and the rhs.  K5: the packed factor, and the rhs
-    only when m > 1 (one rhs is kept in registers)."""
+    """Shared memory a kernel needs (csrc/spd.cu ``shared_floats``): the
+    packed factor and the rhs, and for K4 the panel transposed (K4_PB x ld,
+    ld the rows below the first panel rounded to 4, plus 32), the diagonal
+    block transposed and its pivot scales."""
+    floats = n * (n + 1) // 2 + n * m
     if blocked:
-        return 4 * (4 + n * (n + 1) // 2 + n * m)
-    return 4 * (n * (n + 1) // 2 + (n * m if m > 1 else 0))
+        ld = (max(n - K4_PB, 0) + 3) // 4 * 4 + 32
+        floats += K4_PB * ld + K4_PB * K4_PB + K4_PB
+    return 4 * floats
 
 
 def kernel_name() -> str:

@@ -1,5 +1,5 @@
-// Dense SPD solve A x = b for Hopper: Cholesky A = U^T U, then U^T y = b,
-// then U x = y, all inside one thread block.
+// Dense SPD solve A x = b for Hopper: Cholesky A = L L^T, then L y = b,
+// then L^T x = y, all inside one thread block.
 //
 // Replaces: mcptam_tpu/core/spd.py::_spd_kernel_blocked (K4, the default)
 // and ::_spd_kernel (K5, MCPTAM_SPD_KERNEL=simple), both reached through
@@ -9,21 +9,44 @@
 // What bounds it on the H100: the serial dependence chain.  The reduced
 // camera system is small (n = 6 x poses: 96 in the mapping slice, 288 at
 // capacity), so the factor is ~n^3/6 = 4 MFLOP at most; what costs is the
-// n sequential pivot steps, each a block-wide barrier, and the shared-
-// memory traffic of the updates on the one SM that holds the matrix.  One
-// block per system keeps the whole chain on that SM with no grid-wide
-// synchronisation.  The TPU kernels' 128-padding, lane masks and
-// materialised U^T served their (8,128) tiles and have no purpose here.
-// Pivots are clamped at 1e-12 as in the TPU kernels.
+// n sequential pivot steps and the block-wide barriers between them, on
+// the one SM that holds the matrix.  One block per system keeps the whole
+// chain on that SM with no grid-wide synchronisation.  The TPU kernels'
+// 128-padding, lane masks and materialised U^T served their (8,128) tiles
+// and have no purpose here.  Pivots are clamped at 1e-12 as in the TPU
+// kernels.  No tensor cores: wgmma takes f32 only as TF32, which the port
+// forbids and the Schur matrix's condition number (~1e7) would not
+// survive.  No thread block cluster: it would add a cluster barrier a
+// panel for a trailing update one SM finishes in microseconds.
 //
-// * blocked (K4): the working matrix is the packed lower triangle L (row i
-//   holds columns 0..i contiguously), n(n+1)/2 floats: 166 KB at n = 288,
-//   where a full n x n matrix (324 KB) would not fit the 227 KB a block may
-//   use; L is loaded from A's upper triangle (L[i][k] = A[k][i]).  Panels
-//   of 8 columns: inside a panel the rank-1 updates touch only the panel's
-//   columns; then the trailing triangle takes one rank-8 update, each entry
-//   an 8-term dot product of two contiguous panel rows.  The solves are
-//   blocked the same way.  512 threads.
+// * blocked (K4): the packed lower triangle L (row i holds columns 0..i
+//   contiguously), n(n+1)/2 floats, loaded from A's upper triangle
+//   (L[i][k] = A[k][i]).  Panels of PB columns, two block barriers a
+//   panel and none inside it, 512 threads:
+//   1. warp 0 factors the PB x PB diagonal block in registers: lane r
+//      holds row r, the pivot and the unscaled column entries a_kj are
+//      broadcast by shuffles in the same step (neither waits on the
+//      other), every lane takes rsqrt itself.  It writes the block to L,
+//      its transpose to a dense aligned Dt (Dt[j][k] = L_kj) and the
+//      pivots' 1/sqrt to dinv.
+//   2. every thread takes a row i below the block and solves its PB
+//      contiguous entries against it in registers (l_ij = a_ij dinv_j,
+//      a_ik -= l_ij L_kj, k > j; Dt read as float4 broadcasts), then
+//      writes them to L and to Pt, the panel transposed (Pt[c][i - pe]),
+//      so that the trailing update reads it conflict-free and as float4.
+//   3. the trailing lower triangle takes the rank-PB update in jobs of RT
+//      rows x 32 columns, one job a warp at a time: lane l owns column
+//      k = 32 BK + l and RT rows, holds RT sums in registers, and per
+//      panel column loads its own Pt[c][k] and the rows' RT values as
+//      float4 broadcasts; then L[i][k] -= sum, conflict-free along k.
+//      Warp 0 takes the jobs of the next diagonal block and goes on to
+//      factor it (step 1 of the next panel) while the others finish.
+//   2n/PB barriers in the factor, none inside a panel.  PB = 16 and RT = 16, from
+//   scripts/compare_parent_kernels.py --variants (PERF.md): PB = 8 is
+//   about as fast at n = 96 and slower at 288, PB = 32 slower at both (and
+//   it would cap n at 306), RT = 8 slower at both.  What a step of the
+//   diagonal block or of a substitution costs on the card is the latency
+//   of its shuffles, not the arithmetic.
 //
 // * simple (K5): one pivot and one rank-1 update at a time, as the TPU
 //   kernel does, with ONE block barrier per pivot, 1024 threads.  The
@@ -47,22 +70,25 @@
 //   entries are loaded before the previous block's are stored.  What a
 //   step costs on the card is the 32 warps' fixed per-pivot work, not the
 //   barrier or the entries (~0.5 us a pivot, solves included, at n = 96:
-//   PERF.md); the substitutions are a chain of n divide-shuffle-FMA
-//   steps each.  For m = 1 both
-//   substitutions run in warp 0 with no block barrier: lane l keeps x_i,
-//   i = l (mod 32), and the pivots of its rows in registers, the pivot's
-//   lane divides and broadcasts x_j with a shuffle, every lane updates its
-//   rows.  m > 1 keeps a block form with the rhs in shared memory.
+//   PERF.md).
+//
+// Substitutions (both variants, solve_rhs): for m = 1 by 32-row blocks,
+// warp 0 running the chain inside a block and every thread applying the
+// block's solution to the other rows; m > 1 keeps a block form, two
+// barriers a pivot.
+// m > 1 keeps a block form with the rhs in shared memory.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 512;  // the blocked variant
-constexpr int PB = 8;         // panel width of the blocked variant
+constexpr int PB = 16;        // panel width of the blocked variant
+constexpr int RT = 16;        // rows a lane takes in a trailing-update job
+static_assert(PB % RT == 0 && PB <= 32, "the next diagonal block is whole jobs of one column block");
 constexpr int K5_WARPS = 32;  // the simple variant: 1024 threads
-constexpr int MAX_ROWS = 11;  // row blocks of a lane in the simple variant: n <= 352
-constexpr int REG_ROWS = 4;   // up to here (n <= 128) its entries live in registers
+constexpr int MAX_ROWS = 11;  // row blocks of a lane in K5: n <= 352
+constexpr int REG_ROWS = 4;   // up to here (n <= 128) K5's entries live in registers
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int tri(int i, int k) { return i * (i + 1) / 2 + k; }
@@ -70,117 +96,288 @@ __device__ __forceinline__ int tri(int i, int k) { return i * (i + 1) / 2 + k; }
 // offset of row r of the packed upper triangle, which holds columns r..n-1
 __device__ __forceinline__ int urow(int r, int n) { return r * n - r * (r - 1) / 2; }
 
-// one thread takes pivot j: L[j][j] = sqrt(d), the column scale goes to s_inv
-__device__ __forceinline__ void pivot(float* L, int j, float* s_inv) {
-  if (threadIdx.x == 0) {
-    const float d = L[tri(j, j)];
-    const float inv = 1.0f / sqrtf(fmaxf(d, 1e-12f));
-    L[tri(j, j)] = d * inv;
-    *s_inv = inv;
+// leading dimension of K4's transposed panel Pt: the trailing rows of the
+// first panel, rounded to float4, plus a job's overrun past the last row
+// or column (<= 31)
+__host__ __device__ __forceinline__ int k4_ld(int n) {
+  return ((n > PB ? n - PB + 3 : 0) / 4) * 4 + 32;
+}
+
+// shared memory in floats: K4's Pt, Dt, dinv, factor and right-hand sides;
+// K5's factor and right-hand sides
+__host__ __device__ __forceinline__ size_t shared_floats(bool blocked, int n, int m) {
+  return (blocked ? (size_t)PB * k4_ld(n) + PB * PB + PB : 0) + (size_t)n * (n + 1) / 2 +
+         (size_t)n * m;
+}
+
+// Both substitutions for one right-hand side x (n) in shared memory, where
+// L_ij (i >= j) is F[lo(i, j)]: L y = b, then L^T x = y, by 32-row blocks.
+// Warp 0 runs the chain inside a block: lane l holds row l of the block,
+// divided by its pivot (z_i = x_i / max(L_ii, 1e-12)) and updated with the
+// entries of the block, loaded a step ahead and multiplied by the row's
+// reciprocal pivot; so z_j is x_j once its last update lands, and a step
+// is one shuffle that broadcasts it and one FMA.  Then every thread
+// applies the block's solution to one row after it (forward) or before it
+// (back), a 32-term dot product, conflict-free in either layout (a row of
+// the packed triangle is contiguous, and the offsets i(i+1)/2 of 32
+// consecutive rows fall in 32 distinct banks).  Two block barriers a block
+// and direction; the warp's chain holds the block's rows only.
+template <class Lo>
+__device__ __forceinline__ void solve_rhs(const float* F, Lo lo, float* x,
+                                          float* __restrict__ X, int n, int T) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nb = (n + 31) / 32;
+  for (int a = 0; a < nb; ++a) {                    // forward
+    const int j0 = 32 * a, jn = min(32, n - j0), i = j0 + lane;
+    if (tid < 32) {
+      const bool in = lane < jn;
+      const float rd = in ? 1.0f / fmaxf(F[lo(i, i)], 1e-12f) : 1.0f;
+      float z = in ? x[i] * rd : 0.0f;
+      float u = (in && lane > 0) ? F[lo(i, j0)] * rd : 0.0f;
+#pragma unroll 4
+      for (int jj = 0; jj < jn; ++jj) {
+        const float un = (in && lane > jj + 1) ? F[lo(i, j0 + jj + 1)] * rd : 0.0f;
+        z = fmaf(-u, __shfl_sync(FULL, z, jj), z);
+        u = un;
+      }
+      if (in) x[i] = z;
+    }
+    __syncthreads();
+    for (int r = j0 + 32 + tid; r < n; r += T) {
+      float dot = 0.0f;
+      for (int jj = 0; jj < jn; ++jj) dot = fmaf(F[lo(r, j0 + jj)], x[j0 + jj], dot);
+      x[r] -= dot;
+    }
+    __syncthreads();
   }
+  for (int a = nb - 1; a >= 0; --a) {               // back
+    const int j0 = 32 * a, jn = min(32, n - j0), i = j0 + lane;
+    if (tid < 32) {
+      const bool in = lane < jn;
+      const float rd = in ? 1.0f / fmaxf(F[lo(i, i)], 1e-12f) : 1.0f;
+      float z = in ? x[i] * rd : 0.0f;
+      float u = (in && lane < jn - 1) ? F[lo(j0 + jn - 1, i)] * rd : 0.0f;
+#pragma unroll 4
+      for (int jj = jn - 1; jj >= 0; --jj) {
+        const float un = (jj > 0 && lane < jj - 1) ? F[lo(j0 + jj - 1, i)] * rd : 0.0f;
+        z = fmaf(-u, __shfl_sync(FULL, z, jj), z);
+        u = un;
+      }
+      if (in) x[i] = z;
+    }
+    __syncthreads();
+    for (int r = tid; r < j0; r += T) {
+      float dot = 0.0f;
+      for (int jj = 0; jj < jn; ++jj) dot = fmaf(F[lo(j0 + jj, r)], x[j0 + jj], dot);
+      x[r] -= dot;
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < n; e += T) X[e] = x[e];
+}
+
+// The same substitutions for m > 1 right-hand sides x (n, m) in shared
+// memory, by the whole block of T threads, two barriers a pivot.
+template <class Lo>
+__device__ void solve_block(const float* F, Lo lo, float* x, float* __restrict__ X,
+                            int n, int m, int T) {
+  const int tid = threadIdx.x;
+  for (int j = 0; j < n; ++j) {
+    const float d = fmaxf(F[lo(j, j)], 1e-12f);
+    for (int c = tid; c < m; c += T) x[j * m + c] /= d;
+    __syncthreads();
+    for (int e = tid; e < (n - j - 1) * m; e += T) {
+      const int i = j + 1 + e / m, c = e % m;
+      x[i * m + c] -= F[lo(i, j)] * x[j * m + c];
+    }
+    __syncthreads();
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const float d = fmaxf(F[lo(j, j)], 1e-12f);
+    for (int c = tid; c < m; c += T) x[j * m + c] /= d;
+    __syncthreads();
+    for (int e = tid; e < j * m; e += T) {
+      const int i = e / m, c = e % m;
+      x[i * m + c] -= F[lo(j, i)] * x[j * m + c];
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < n * m; e += T) X[e] = x[e];
+}
+
+// K4's diagonal block at p0, in warp 0; lane r holds row p0 + r: its
+// entries left of the diagonal in a[], unscaled until their step, and its
+// diagonal entry in dg.  A step j shuffles the pivot and the unscaled a_kj
+// at once (neither waits on the other), every lane takes inv = rsqrt(d)
+// itself and scales its own L_rj = a_rj inv; so the chain from pivot to
+// pivot holds one shuffle, not two.  Writes the block to L, its transpose
+// to Dt (Dt[j][k] = L_kj) and the pivots' 1/sqrt to dinv.
+__device__ __forceinline__ void k4_diagonal(float* L, float* Dt, float* dinv, int p0, int n) {
+  const int r = threadIdx.x & 31;
+  const int w = min(PB, n - p0);     // < PB only for the last panel
+  float* row = L + tri(p0 + min(r, w - 1), p0);
+  float a[PB];
+#pragma unroll
+  for (int c = 0; c < PB; ++c) a[c] = (r < w && c < r) ? row[c] : 0.0f;
+  float dg = r < w ? row[r] : 1.0f, lrr = 0.0f;
+#pragma unroll
+  for (int j = 0; j < PB; ++j) {
+    if (j < w) {
+      const float d = __shfl_sync(FULL, dg, j);
+      float raw[PB];                                // raw[k] = a_kj, unscaled
+#pragma unroll
+      for (int k = j + 1; k < PB; ++k) raw[k] = __shfl_sync(FULL, a[j], k);
+      const float inv = rsqrtf(fmaxf(d, 1e-12f));
+      const float li = a[j] * inv;                  // L_rj for r > j
+      if (r == j) lrr = d * inv;
+      if (r > j) {
+        a[j] = li;
+        dg = fmaf(-li, li, dg);
+      }
+#pragma unroll
+      for (int k = j + 1; k < PB; ++k)
+        if (r > k) a[k] = fmaf(-li, raw[k] * inv, a[k]);
+      if (r == 0) dinv[j] = inv;
+    }
+  }
+  if (r < w) {
+#pragma unroll
+    for (int c = 0; c < PB; ++c)
+      if (c < r) row[c] = a[c];
+    row[r] = lrr;
+  }
+  if (r < PB) {
+#pragma unroll
+    for (int c = 0; c < PB; ++c) Dt[c * PB + r] = c < r ? a[c] : 0.0f;
+  }
+}
+
+// K4's factor, in place on L.  Ends after a block barrier.  Its shared
+// memory (all dynamic: the opt-in cap counts static bytes too): the panel
+// transposed Pt (PB x ld), the diagonal block transposed Dt (PB x PB), its
+// pivots' 1/sqrt dinv (PB), the packed lower factor L (n(n+1)/2) and the
+// right-hand sides (n, m).
+//
+// A panel p0..pe-1 (every panel but the last is full) takes two block
+// barriers: the rows below its diagonal block are solved against it, then
+// the trailing triangle takes the panel's rank-PB update while warp 0
+// updates and factors the next diagonal block (look-ahead): that block's
+// update is exactly the first PB / RT jobs, which no other warp takes.
+__device__ __forceinline__ void k4_factor(int n) {
+  extern __shared__ float4 k4_smem[];
+  float* Pt = reinterpret_cast<float*>(k4_smem);
+  float* Dt = Pt + PB * k4_ld(n);
+  float* dinv = Dt + PB * PB;
+  float* L = dinv + PB;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  constexpr int NW = THREADS / 32;
+  const int ld = k4_ld(n);
+  if (warp == 0) k4_diagonal(L, Dt, dinv, 0, n);
   __syncthreads();
+  for (int p0 = 0; p0 + PB < n; p0 += PB) {
+    const int pe = p0 + PB;
+
+    // the panel's rows below the block, a row a thread
+    for (int i = pe + tid; i < n; i += THREADS) {
+      float* row = L + tri(i, p0);
+      float a[PB];
+#pragma unroll
+      for (int c = 0; c < PB; ++c) a[c] = row[c];
+#pragma unroll
+      for (int j = 0; j < PB; ++j) {
+        a[j] *= dinv[j];
+        const float4* dj = reinterpret_cast<const float4*>(Dt + j * PB);
+#pragma unroll
+        for (int q = (j + 1) / 4; q < PB / 4; ++q) {
+          const float4 v = dj[q];
+          const float vq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * q + e > j) a[4 * q + e] = fmaf(-a[j], vq[e], a[4 * q + e]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < PB; ++c) {
+        row[c] = a[c];
+        Pt[c * ld + (i - pe)] = a[c];
+      }
+    }
+    __syncthreads();
+
+    // rank-PB update of the trailing triangle, rows and columns >= pe, in
+    // jobs (column block bk of 32, row chunk q of RT) with q RT >= 32 bk,
+    // numbered block by block: warp 0 takes jobs 0..j0-1 (the next
+    // diagonal block's rows), the other warps the rest in turn
+    const int nt = n - pe;
+    const int nq = (nt + RT - 1) / RT, nbk = (nt + 31) / 32;
+    const int j0 = min(PB / RT, nq);
+    int bk = 0, first = 0;           // first job of column block bk
+    for (int job = warp == 0 ? 0 : j0 + warp - 1;; job += warp == 0 ? 1 : NW - 1) {
+      if (warp == 0 && job == j0) break;
+      while (bk < nbk && job >= first + nq - 32 * bk / RT) {
+        first += nq - 32 * bk / RT;
+        ++bk;
+      }
+      if (bk >= nbk) break;
+      const int kr = 32 * bk + lane;
+      const int ir0 = RT * (32 * bk / RT + job - first);
+      float acc[RT];
+#pragma unroll
+      for (int t = 0; t < RT; ++t) acc[t] = 0.0f;
+      const float* pk = Pt + kr;
+      const float* pi = Pt + ir0;
+#pragma unroll
+      for (int c = 0; c < PB; ++c, pk += ld, pi += ld) {
+        const float b = *pk;
+        const float4* pa = reinterpret_cast<const float4*>(pi);
+#pragma unroll
+        for (int t = 0; t < RT / 4; ++t) {
+          const float4 v = pa[t];
+          acc[4 * t + 0] = fmaf(v.x, b, acc[4 * t + 0]);
+          acc[4 * t + 1] = fmaf(v.y, b, acc[4 * t + 1]);
+          acc[4 * t + 2] = fmaf(v.z, b, acc[4 * t + 2]);
+          acc[4 * t + 3] = fmaf(v.w, b, acc[4 * t + 3]);
+        }
+      }
+      int e = tri(pe + ir0, pe + kr);              // L[i][k], i = pe + ir0 + t
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        const int ir = ir0 + t;
+        if (ir < nt && kr <= ir) L[e] -= acc[t];
+        e += pe + ir + 1;
+      }
+    }
+    if (warp == 0) {
+      __syncwarp();                  // the block's entries as every lane wrote them
+      k4_diagonal(L, Dt, dinv, pe, n);
+    }
+    __syncthreads();
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
 spd_blocked_kernel(const float* __restrict__ A, const float* __restrict__ B,
                    float* __restrict__ X, int n, int m) {
-  extern __shared__ float smem[];   // all dynamic: the opt-in cap counts static bytes too
-  float* s_inv = smem;               // the current pivot's column scale
-  float* L = smem + 4;               // packed lower factor, n(n+1)/2
-  float* x = L + n * (n + 1) / 2;    // right-hand sides, (n, m)
+  extern __shared__ float4 k4_smem[];
+  float* L = reinterpret_cast<float*>(k4_smem) + PB * k4_ld(n) + PB * PB + PB;
+  float* x = L + n * (n + 1) / 2;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = THREADS / 32;
+  const int lane = tid & 31, warp = tid >> 5;
 
   // row r of A's upper triangle (coalesced) -> column r of L
-  for (int r = warp; r < n; r += nwarps)
+  for (int r = warp; r < n; r += THREADS / 32)
     for (int c = r + lane; c < n; c += 32) L[tri(c, r)] = A[(size_t)r * n + c];
   for (int e = tid; e < n * m; e += THREADS) x[e] = B[e];
   __syncthreads();
 
-  // ---- factor
-  for (int p0 = 0; p0 < n; p0 += PB) {
-    const int pe = min(p0 + PB, n);
-    for (int j = p0; j < pe; ++j) {
-      pivot(L, j, s_inv);
-      const float inv = *s_inv;
-      for (int i = j + 1 + tid; i < n; i += THREADS) L[tri(i, j)] *= inv;
-      __syncthreads();
-      // rank-1 update of the panel's remaining columns only; thread i
-      // writes row i and reads column j, which nobody writes here
-      for (int i = j + 1 + tid; i < n; i += THREADS) {
-        const float lij = L[tri(i, j)];
-        float* row = L + tri(i, 0);
-        const int kend = min(pe, i + 1);
-        for (int k = j + 1; k < kend; ++k) row[k] -= lij * L[tri(k, j)];
-      }
-      __syncthreads();
-    }
-    // rank-8 update of the trailing triangle (rows remain only after a
-    // full panel: a partial one is the last)
-    for (int i = pe + warp; i < n; i += nwarps) {
-      const float* li = L + tri(i, p0);
-      float a[PB];
-#pragma unroll
-      for (int c = 0; c < PB; ++c) a[c] = li[c];
-      float* row = L + tri(i, 0);
-      for (int k = pe + lane; k <= i; k += 32) {
-        const float* lk = L + tri(k, p0);
-        float s = 0.0f;
-#pragma unroll
-        for (int c = 0; c < PB; ++c) s += a[c] * lk[c];
-        row[k] -= s;
-      }
-    }
-    __syncthreads();
-  }
+  k4_factor(n);
 
-  // ---- forward solve L y = b (L = U^T)
-  for (int p0 = 0; p0 < n; p0 += PB) {
-    const int pe = min(p0 + PB, n);
-    for (int j = p0; j < pe; ++j) {
-      const float d = fmaxf(L[tri(j, j)], 1e-12f);
-      for (int c = tid; c < m; c += THREADS) x[j * m + c] /= d;
-      __syncthreads();
-      for (int e = tid; e < (pe - j - 1) * m; e += THREADS) {
-        const int i = j + 1 + e / m, c = e % m;
-        x[i * m + c] -= L[tri(i, j)] * x[j * m + c];
-      }
-      __syncthreads();
-    }
-    for (int e = tid; e < (n - pe) * m; e += THREADS) {
-      const int i = pe + e / m, c = e % m;
-      const float* li = L + tri(i, p0);
-      float s = 0.0f;
-      for (int q = 0; q < pe - p0; ++q) s += li[q] * x[(p0 + q) * m + c];
-      x[i * m + c] -= s;
-    }
-    __syncthreads();
-  }
-
-  // ---- back solve U x = y (U[i][j] = L[j][i])
-  for (int p0 = ((n - 1) / PB) * PB; p0 >= 0; p0 -= PB) {
-    const int pe = min(p0 + PB, n);
-    for (int j = pe - 1; j >= p0; --j) {
-      const float d = fmaxf(L[tri(j, j)], 1e-12f);
-      for (int c = tid; c < m; c += THREADS) x[j * m + c] /= d;
-      __syncthreads();
-      const float* lj = L + tri(j, 0);
-      for (int e = tid; e < (j - p0) * m; e += THREADS) {
-        const int i = p0 + e / m, c = e % m;
-        x[i * m + c] -= lj[i] * x[j * m + c];
-      }
-      __syncthreads();
-    }
-    for (int e = tid; e < p0 * m; e += THREADS) {
-      const int i = e / m, c = e % m;
-      float s = 0.0f;
-      for (int q = p0; q < pe; ++q) s += L[tri(q, i)] * x[q * m + c];
-      x[i * m + c] -= s;
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < n * m; e += THREADS) X[e] = x[e];
+  const auto lo = [](int i, int j) { return tri(i, j); };
+  if (m == 1)
+    solve_rhs(L, lo, x, X, n, THREADS);
+  else
+    solve_block(L, lo, x, X, n, m, THREADS);
 }
 
 // K5.  R = ceil(n / 32) row blocks a lane.  Thread (lane, warp) owns the
@@ -196,7 +393,7 @@ spd_simple_kernel(const float* __restrict__ A, const float* __restrict__ B,
   constexpr bool REG = R <= REG_ROWS;       // a thread's entries fit its registers
   extern __shared__ float smem[];
   float* U = smem;                   // packed upper triangle, n(n+1)/2
-  float* x = U + n * (n + 1) / 2;    // right-hand sides (n, m), m > 1 only
+  float* x = U + n * (n + 1) / 2;    // right-hand sides (n, m)
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -205,8 +402,7 @@ spd_simple_kernel(const float* __restrict__ A, const float* __restrict__ B,
     float* ur = U + urow(r, n) - r;  // ur[c] = U[r][c], c >= r
     for (int c = r + lane; c < n; c += 32) ur[c] = A[(size_t)r * n + c];
   }
-  if (m > 1)
-    for (int e = tid; e < n * m; e += T) x[e] = B[e];
+  for (int e = tid; e < n * m; e += T) x[e] = B[e];
   __syncthreads();
 
   // ---- factor: one barrier per pivot
@@ -300,92 +496,11 @@ spd_simple_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
   __syncthreads();
 
-  if (m == 1) {
-    // ---- both substitutions in warp 0; lane l keeps x_i and the pivot
-    // max(U_ii, 1e-12) of its rows i = l + 32 a in registers.  A step: the
-    // pivot's lane divides, a shuffle broadcasts x_j, every lane updates
-    // its rows with the U entries it loaded before the shuffle.
-    if (warp != 0) return;
-    float xr[R], dr[R];
-    int rb[R];                               // U + rb[a] + j = &U[i][j]
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const int i = lane + 32 * a;
-      xr[a] = i < n ? B[i] : 0.0f;
-      dr[a] = i < n ? fmaxf(U[urow(i, n)], 1e-12f) : 1.0f;
-      rb[a] = urow(i, n) - i;
-    }
-    // forward L y = b: L_ij = U[j][i], i > j
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-#pragma unroll 4
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = 32 * a + jj;
-        if (j >= n) break;
-        const float* uj = U + urow(j, n) - j;
-        float u[R];
-#pragma unroll
-        for (int a2 = a; a2 < R; ++a2) {
-          const int i = lane + 32 * a2;
-          u[a2] = (i > j && i < n) ? uj[i] : 0.0f;
-        }
-        const float yj = __shfl_sync(FULL, xr[a] / dr[a], jj);
-        if (lane == jj) xr[a] = yj;
-#pragma unroll
-        for (int a2 = a; a2 < R; ++a2) {
-          const int i = lane + 32 * a2;
-          if (i > j && i < n) xr[a2] = fmaf(-u[a2], yj, xr[a2]);
-        }
-      }
-    }
-    // back U x = y: x_i -= U[i][j] x_j, i < j
-#pragma unroll
-    for (int a = R - 1; a >= 0; --a) {
-#pragma unroll 4
-      for (int jj = 31; jj >= 0; --jj) {
-        const int j = 32 * a + jj;
-        if (j >= n) continue;
-        float u[R];
-#pragma unroll
-        for (int a2 = 0; a2 <= a; ++a2) u[a2] = lane + 32 * a2 < j ? U[rb[a2] + j] : 0.0f;
-        const float xj = __shfl_sync(FULL, xr[a] / dr[a], jj);
-        if (lane == jj) xr[a] = xj;
-#pragma unroll
-        for (int a2 = 0; a2 <= a; ++a2)
-          if (lane + 32 * a2 < j) xr[a2] = fmaf(-u[a2], xj, xr[a2]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const int i = lane + 32 * a;
-      if (i < n) X[i] = xr[a];
-    }
-    return;
-  }
-
-  // ---- m > 1: block form, rhs in shared memory
-  for (int j = 0; j < n; ++j) {
-    const float* uj = U + urow(j, n) - j;
-    const float d = fmaxf(uj[j], 1e-12f);
-    for (int c = tid; c < m; c += T) x[j * m + c] /= d;
-    __syncthreads();
-    for (int e = tid; e < (n - j - 1) * m; e += T) {
-      const int i = j + 1 + e / m, c = e % m;
-      x[i * m + c] -= uj[i] * x[j * m + c];
-    }
-    __syncthreads();
-  }
-  for (int j = n - 1; j >= 0; --j) {
-    const float d = fmaxf(U[urow(j, n)], 1e-12f);
-    for (int c = tid; c < m; c += T) x[j * m + c] /= d;
-    __syncthreads();
-    for (int e = tid; e < j * m; e += T) {
-      const int i = e / m, c = e % m;
-      x[i * m + c] -= U[urow(i, n) + j - i] * x[j * m + c];
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < n * m; e += T) X[e] = x[e];
+  const auto lo = [n](int i, int j) { return urow(j, n) - j + i; };   // L_ij = U[j][i]
+  if (m == 1)
+    solve_rhs(U, lo, x, X, n, T);
+  else
+    solve_block(U, lo, x, X, n, m, T);
 }
 
 // raise a kernel's dynamic shared-memory cap to the device's opt-in limit,
@@ -403,32 +518,26 @@ cudaError_t opt_in(K kernel, int* optin) {
   return err;
 }
 
-int launch_blocked(const float* A, const float* B, float* X, int n, int m,
-                   cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * (4 + (size_t)n * (n + 1) / 2 + (size_t)n * m);
-  static int optin = 0;
-  const cudaError_t err = opt_in(spd_blocked_kernel, &optin);
+// launch one of the kernels on one block
+int launch(void (*kernel)(const float*, const float*, float*, int, int), int* optin,
+           int threads, bool blocked, const float* A, const float* B, float* X, int n, int m,
+           cudaStream_t stream) {
+  const cudaError_t err = opt_in(kernel, optin);
   if (err != cudaSuccess) return err;
-  if (n <= 0 || m <= 0 || bytes > (size_t)optin) return cudaErrorInvalidValue;
-  spd_blocked_kernel<<<1, THREADS, bytes, stream>>>(A, B, X, n, m);
+  if (sizeof(float) * shared_floats(blocked, n, m) > (size_t)*optin) return cudaErrorInvalidValue;
+  kernel<<<1, threads, sizeof(float) * shared_floats(blocked, n, m), stream>>>(A, B, X, n, m);
   return cudaGetLastError();
 }
 
 template <int R>
 int launch_simple(const float* A, const float* B, float* X, int n, int m,
                   cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * ((size_t)n * (n + 1) / 2 + (m > 1 ? (size_t)n * m : 0));
   static int optin = 0;
-  const cudaError_t err = opt_in(spd_simple_kernel<R>, &optin);
-  if (err != cudaSuccess) return err;
-  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
-  spd_simple_kernel<R><<<1, 32 * K5_WARPS, bytes, stream>>>(A, B, X, n, m);
-  return cudaGetLastError();
+  return launch(spd_simple_kernel<R>, &optin, 32 * K5_WARPS, false, A, B, X, n, m, stream);
 }
 
 int launch_simple_rows(const float* A, const float* B, float* X, int n, int m,
                        cudaStream_t stream) {
-  if (n <= 0 || m <= 0 || n > 32 * MAX_ROWS) return cudaErrorInvalidValue;
   switch ((n + 31) / 32) {
     case 1: return launch_simple<1>(A, B, X, n, m, stream);
     case 2: return launch_simple<2>(A, B, X, n, m, stream);
@@ -450,6 +559,8 @@ int launch_simple_rows(const float* A, const float* B, float* X, int n, int m,
 // blocked != 0 selects K4, else K5.  Returns a cudaError_t.
 extern "C" int mcptam_spd_solve(const float* A, const float* B, float* X,
                                 int n, int m, int blocked, cudaStream_t stream) {
-  return blocked ? launch_blocked(A, B, X, n, m, stream)
+  if (n <= 0 || m <= 0 || n > 32 * MAX_ROWS) return cudaErrorInvalidValue;
+  static int optin_blocked = 0;
+  return blocked ? launch(spd_blocked_kernel, &optin_blocked, THREADS, true, A, B, X, n, m, stream)
                  : launch_simple_rows(A, B, X, n, m, stream);
 }

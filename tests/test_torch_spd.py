@@ -6,11 +6,16 @@ The port's plain version (``spd_solve`` on CPU tensors, which is
 ``jnp.linalg.solve``) and against the JAX Pallas kernels K4 (blocked) and
 K5 (simple) run in interpret mode, the oracle tests/test_linalg.py uses.
 The CUDA kernels themselves run only on the card (chip_smoke.py phase 3);
-here a numpy emulation of K5's schedule in csrc/spd.cu (packed upper
-triangle, 2-D cyclic ownership over 1024 threads, one step per pivot,
-entries in registers up to n = 128, rows scaled after the last step) is
-held to the JAX K5 in interpret mode, and checks that every step updates
-each trailing entry exactly once.
+here numpy emulations of their schedules in csrc/spd.cu are held to the
+JAX kernels in interpret mode: K5's (packed upper triangle, 2-D cyclic
+ownership over 1024 threads, one step per pivot, entries in registers up
+to n = 128, rows scaled after the last step), and K4's (packed lower
+triangle, panels of K4_PB columns: the diagonal block factored by lane
+rows, the rows below solved row by row, the trailing update in jobs of
+RT rows x 32 columns with warp 0 taking the next diagonal block's, the
+substitutions by 32-row blocks).  Each checks that
+every step (K5) or panel (K4) updates each trailing entry exactly once;
+K4's also at n = 288, the capacity size, against a float64 solve.
 
 Tolerances, relative to max |x|:
   * random SPD (A = G G^T / n + I, kappa ~10): 1e-4, f32 solves that
@@ -31,7 +36,9 @@ from _torch_parity import n, t
 from mcptam_tpu.core.spd import _spd_solve_pallas, spd_solve as j_spd_solve
 from mcptam_tpu_torch.ba import bundle as pbundle
 from mcptam_tpu_torch.ba.problems import build
-from mcptam_tpu_torch.core.spd import spd_solve, spd_solve_reference
+from mcptam_tpu_torch.core.spd import (
+    K4_PB, MAX_SHARED_BYTES, shared_bytes, spd_solve, spd_solve_reference,
+)
 
 
 def _random_spd(nn: int, m: int, seed: int):
@@ -164,15 +171,7 @@ def _k5_emulate(A, b):
         row = slice(_urow(r, nn), _urow(r, nn) + nn - r)
         U[row] = U[row] * (np.float32(1) / np.sqrt(np.maximum(U[_urow(r, nn)],
                                                               np.float32(1e-12))))
-    x = np.asarray(b, np.float32).reshape(-1).copy()
-    d = np.maximum(np.array([U[_urow(i, nn)] for i in range(nn)]), np.float32(1e-12))
-    for j in range(nn):
-        x[j] = x[j] / d[j]
-        x[j + 1:] = x[j + 1:] - U[_urow(j, nn) + 1:_urow(j, nn) + nn - j] * x[j]
-    for j in range(nn - 1, -1, -1):
-        x[j] = x[j] / d[j]
-        x[:j] = x[:j] - np.array([U[_urow(i, nn) - i + j] for i in range(j)], np.float32) * x[j]
-    return x[:, None]
+    return _solve_rhs(lambda i, j: U[_urow(j, nn) - j + i], b)
 
 
 @pytest.mark.parametrize("nn", [5, 40, 96, 130])
@@ -183,3 +182,191 @@ def test_k5_schedule_matches_jax_kernel(nn):
     xk = np.asarray(_spd_solve_pallas(jnp.asarray(A), jnp.asarray(B), interpret=True,
                                       blocked=False))
     assert _rel(_k5_emulate(A, B), xk) < 1e-4
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-add (a b + c rounded once, as fmaf)."""
+    return (np.float64(a) * b + c).astype(np.float32) if np.isscalar(a) else \
+        (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _tri(i, k):
+    """Offset of L[i][k] in csrc/spd.cu's packed lower triangle."""
+    return i * (i + 1) // 2 + k
+
+
+K4_RT, K4_WARPS = 16, 16   # csrc/spd.cu: RT, THREADS / 32
+
+
+def _k4_ld(nn):
+    return (max(nn - K4_PB, 0) + 3) // 4 * 4 + 32
+
+
+def _k4_jobs(nt):
+    """The trailing-update jobs (column block bk, first row ir0) that each
+    warp of spd_blocked_kernel takes, decoded as the kernel decodes them:
+    warp 0 the next diagonal block's (the first PB / RT), the other warps
+    the rest in turn."""
+    nq, nbk = -(-nt // K4_RT), -(-nt // 32)
+    j0 = min(K4_PB // K4_RT, nq)
+    jobs = []
+    for warp in range(K4_WARPS):
+        bk = first = 0
+        job, step = (0, 1) if warp == 0 else (j0 + warp - 1, K4_WARPS - 1)
+        while not (warp == 0 and job == j0):
+            while bk < nbk and job >= first + nq - 32 * bk // K4_RT:
+                first += nq - 32 * bk // K4_RT
+                bk += 1
+            if bk >= nbk:
+                break
+            jobs.append((bk, K4_RT * (32 * bk // K4_RT + job - first)))
+            job += step
+    return jobs
+
+
+def _k4_emulate(A, b):
+    """spd_blocked_kernel's factor and substitutions, thread by thread
+    (numpy over lanes, rows and jobs), m = 1, in f32 with fmaf where the
+    kernel has it."""
+    f32 = np.float32
+    A = np.asarray(A, f32)
+    nn, PB = A.shape[0], K4_PB
+    ld = _k4_ld(nn)
+    L = np.zeros(nn * (nn + 1) // 2, f32)
+    for i in range(nn):
+        L[_tri(i, 0):_tri(i, 0) + i + 1] = A[:i + 1, i]
+    Pt = np.zeros((PB, ld), f32)
+    lanes = np.arange(32)
+    for p0 in range(0, nn, PB):
+        w = min(PB, nn - p0)
+        pe = p0 + w
+        # 1. the diagonal block: lane r holds row p0 + r
+        # (entries left of the diagonal unscaled until their step, the
+        # diagonal apart in dg)
+        a = np.zeros((32, PB), f32)
+        dg = np.ones(32, f32)
+        for r in range(w):
+            a[r, :r] = L[_tri(p0 + r, p0):_tri(p0 + r, p0) + r]
+            dg[r] = L[_tri(p0 + r, p0 + r)]
+        lrr = np.zeros(32, f32)
+        dinv = np.zeros(PB, f32)
+        for j in range(w):
+            d = dg[j]
+            raw = a[:, j].copy()                     # a_kj, unscaled, by lane k
+            inv = f32(1) / np.sqrt(np.maximum(d, f32(1e-12)))
+            li = a[:, j] * inv
+            lrr[j] = d * inv
+            below = lanes > j
+            a[below, j] = li[below]
+            dg[below] = _fma(-li[below], li[below], dg[below])
+            for k in range(j + 1, PB):
+                m = lanes > k
+                a[m, k] = _fma(-li[m], raw[k] * inv, a[m, k])
+            dinv[j] = inv
+        for r in range(w):
+            L[_tri(p0 + r, p0):_tri(p0 + r, p0) + r] = a[r, :r]
+            L[_tri(p0 + r, p0 + r)] = lrr[r]
+        Dt = np.where(np.arange(PB)[:, None] < np.arange(PB)[None, :], a[:PB].T, 0)
+        if pe >= nn:
+            break
+        # 2. the rows below, a row a thread
+        rows = np.arange(pe, nn)
+        ix = (rows * (rows + 1) // 2 + p0)[:, None] + np.arange(PB)
+        P = L[ix]
+        for j in range(PB):
+            P[:, j] = P[:, j] * dinv[j]
+            for k in range(j + 1, PB):
+                P[:, k] = _fma(-P[:, j], Dt[j, k], P[:, k])
+        L[ix] = P
+        Pt[:, :nn - pe] = P.T
+        # 3. the trailing update, job by job in the kernel's order
+        nt = nn - pe
+        touched = np.zeros(L.size, int)
+        for bk, ir0 in _k4_jobs(nt):
+            kr = 32 * bk + lanes                                  # (32,)
+            ir = ir0 + np.arange(K4_RT)                           # (RT,)
+            acc = np.zeros((K4_RT, 32), f32)
+            for c in range(PB):
+                acc = _fma(Pt[c, ir][:, None], Pt[c, kr][None, :], acc)
+            ii, kk = np.meshgrid(ir, kr, indexing="ij")
+            ok = (ii < nt) & (kk <= ii)
+            idx = _tri(pe + ii[ok], pe + kk[ok])
+            np.add.at(touched, idx, 1)
+            L[idx] = L[idx] - acc[ok]
+        trail = np.concatenate([np.arange(_tri(i, pe), _tri(i, i) + 1) for i in range(pe, nn)])
+        assert np.all(touched[trail] == 1) and touched.sum() == trail.size, p0
+    return _solve_rhs(lambda i, j: L[_tri(i, j)], b)
+
+
+def _solve_rhs(lo, b):
+    """solve_rhs in csrc/spd.cu: L y = b, then L^T x = y, with L_ij =
+    lo(i, j), by 32-row blocks: inside a block the warp's chain, every row
+    divided by its pivot and its entries multiplied by the reciprocal; the
+    block's solution then reaches the other rows as one 32-term dot
+    product each, summed in order."""
+    f32 = np.float32
+    x = np.asarray(b, f32).reshape(-1).copy()
+    nn = x.size
+    rd = f32(1) / np.maximum(np.array([lo(i, i) for i in range(nn)], f32), f32(1e-12))
+    blocks = [np.arange(j0, min(j0 + 32, nn)) for j0 in range(0, nn, 32)]
+
+    def dots(rows, cols, entry):
+        s = np.zeros(rows.size, f32)
+        for j in cols:
+            s = _fma(entry(rows, j), x[j], s)
+        return s
+
+    for blk in blocks:
+        z = x[blk] * rd[blk]
+        for t, j in enumerate(blk):
+            later = blk[t + 1:]
+            z[t + 1:] = _fma(-(lo(later, j) * rd[later]), z[t], z[t + 1:])
+        x[blk] = z
+        rows = np.arange(blk[-1] + 1, nn)
+        x[rows] = x[rows] - dots(rows, blk, lo)
+    for blk in blocks[::-1]:
+        z = x[blk] * rd[blk]
+        for t in range(blk.size - 1, -1, -1):
+            j, earlier = blk[t], blk[:t]
+            z[:t] = _fma(-(lo(j, earlier) * rd[earlier]), z[t], z[:t])
+        x[blk] = z
+        rows = np.arange(blk[0])
+        x[rows] = x[rows] - dots(rows, blk, lambda r, j: lo(j, r))
+    return x[:, None]
+
+
+@pytest.mark.parametrize("nn", [5, 40, 96, 130])
+def test_k4_schedule_matches_jax_kernel(nn):
+    """K4's schedule (panels without per-pivot barriers) solves what the
+    JAX K4 solves, within the f32 tolerance."""
+    A, B = _random_spd(nn, 1, seed=nn + 1)
+    xk = np.asarray(_spd_solve_pallas(jnp.asarray(A), jnp.asarray(B), interpret=True,
+                                      blocked=True))
+    assert _rel(_k4_emulate(A, B), xk) < 1e-4
+
+
+def test_k4_schedule_at_capacity():
+    """n = 288 (48 MKFs x 6), kappa 1e4 as chip_smoke.check_spd builds it:
+    within SPD_TOL (1e-3) of a float64 solve; every panel updates each
+    trailing entry exactly once (asserted inside the emulation)."""
+    nn = 288
+    rng = np.random.default_rng(288)
+    Q, _ = np.linalg.qr(rng.standard_normal((nn, nn)))
+    A = ((Q * np.logspace(0, 4, nn)) @ Q.T).astype(np.float32)
+    A = 0.5 * (A + A.T)
+    B = rng.standard_normal((nn, 1)).astype(np.float32)
+    x64 = np.linalg.solve(A.astype(np.float64), B.astype(np.float64))
+    assert _rel(_k4_emulate(A, B), x64) < 1e-3
+
+
+@pytest.mark.parametrize("blocked,edge", [(True, 322), (False, 339)])
+def test_shared_memory_range_edge(blocked, edge):
+    """The wrappers' range: the largest m = 1 system whose layout fits the
+    227 KB a block may use.  K4's layout is the emulation's: Pt, Dt, the
+    pivot scales, the packed factor and the rhs."""
+    assert shared_bytes(edge, 1, blocked) <= MAX_SHARED_BYTES < shared_bytes(edge + 1, 1, blocked)
+    if blocked:
+        nn = edge
+        assert shared_bytes(nn, 1) == 4 * (K4_PB * _k4_ld(nn) + K4_PB * K4_PB + K4_PB
+                                           + nn * (nn + 1) // 2 + nn)
+    assert shared_bytes(edge, 3, blocked) == shared_bytes(edge, 1, blocked) + 4 * 2 * edge
