@@ -11,25 +11,33 @@ Phases, each fatal on failure:
      shapes its path gives it, with the tolerance stated, timed beside the
      plain version and, where one PyTorch call computes the same function,
      beside that call: FAST (the four levels of a frame in one launch, and
-     each level alone), the window gather on tracking shapes and at the
-     map-maker's largest call (the epipolar pass's 26x26 uint8 source
-     windows), ESM at the tracker's shape (4 cameras, 9 iterations) and
-     the relocaliser's (1 camera, 12 iterations), both SPD Cholesky solves at n = 96 and 288 on random SPD matrices and
-     on the reduced camera system of one LM step of phase 5's problem
-     (timed at both sizes beside torch.linalg.solve and
-     torch.linalg.cholesky + torch.cholesky_solve), the
-     half-sample on random f32 and a rendered frame, the unaligned gather
-     on 3840 windows of 29 and of 9 pixels, some overrunning the plane;
+     each level alone), the window gather at the tracker's former shapes
+     and at the map-maker's largest call (the epipolar pass's 26x26 uint8
+     source windows), ESM at the tracker's shape (4 cameras, 9
+     iterations) and the relocaliser's (1 camera, 12 iterations), both
+     SPD Cholesky solves at n = 96 and 288 on random SPD matrices and on
+     the reduced camera system of one LM step of phase 5's problem (timed
+     at both sizes beside torch.linalg.solve and torch.linalg.cholesky +
+     torch.cholesky_solve), K4's global path at n = 324, 384, 576 and
+     1536 and on the Schur matrix of phase 5's problem in a 64-MKF
+     capacity (n = 384), the half-sample on random f32 and a rendered
+     frame, the unaligned gather on 3840 windows of 29 and of 9 pixels,
+     some overrunning the plane, the fused patch search on the coarse
+     and fine calls of a tracked batch (box sums bit-exact, offsets up to
+     near-ties), and make_sbi with ESM on a 480x752 rig, whose SBI needs
+     the linear resize;
   4. the tracking slice: render the 4-camera 480x640 rig and build the
      ground-truth map on the card, then run System.process_frames over
      the 128-pose benchmark trajectory in batches of 8 with the
      benchmark's quality gates, counting kernel launches; then a second,
-     timed pass;
+     timed pass, and the device operations of a tracked frame with the
+     fused search and with the plain one (torch.profiler);
   5. LM: the benchmark's global bundle problem (16 poses, 2048 points,
      8192 measurements), LM iterations/s over 6 chunks of 10, the
      noiseless fidelity problem (mean reprojection error < 1e-3 px after
-     100 iterations), and the timed problem again on the unblocked
-     Cholesky kernel;
+     100 iterations), the timed problem again on the unblocked Cholesky
+     kernel, and placed in a 64-MKF capacity (n = 384) on K4's global
+     path against the same run on the plain solver in float64;
   6. mapping: System.process_frames with the map-maker ticking (ba_chunk
      4, a tick every 2nd batch), a warm-up of 88 frames that walks the rig
      0.3 m sideways and back so that keyframes are added and integrated,
@@ -102,6 +110,23 @@ N_GATHER_WINDOWS = 3840   # 4 cams x (512 + 256 + 128 + 64) candidates
 # source window for each of MapMakerConfig.epi_max_hypotheses hypotheses
 EPI_CAP_PER_LEVEL, EPI_WINDOW = 32, 26
 RELOC_ITERATIONS = 12     # tracker/reloc.py's ESM call on one camera
+# the fused search against its plain version: found flags and best
+# offsets agree on SEARCH_AGREE of the pairs, each disagreement a near-tie
+# (best ZMSSD within SEARCH_TIE relative): the cross term sums in another
+# order than cuDNN's; subpixel positions of agreeing pairs within 1e-3 px
+SEARCH_AGREE, SEARCH_TIE, SUBPIX_TOL = 0.99, 1e-3, 1e-3
+# K4's global path: random SPD beyond the shared range, up to 256 MKFs
+# (n = 6 x 256), and the phase 5 problem placed in a 64-MKF capacity
+SPD_GLOBAL_SIZES, CAPACITY_MKFS = (324, 384, 576, 1536), 64
+# the capacity run's final LM cost against the same run on the plain
+# solver in float64.  Not in float32: at 64 MKFs that run's accept/reject
+# path departs from both the float64 run and K4's (the phase prints all
+# three costs)
+CAPACITY_COST_TOL = 1e-4
+# a camera that does not halve to the 30x40 SBI: 480x752 halves to 30x47
+# and make_sbi finishes with the reference's linear resize
+RESIZE_H, RESIZE_W = 480, 752
+SBI_TOL = 1e-4          # the card's SBI against the CPU's
 # the H100 SXM's published peaks: HBM bytes/s and f32 operations/s outside
 # the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -124,10 +149,15 @@ KERNELS = {
                          "scripts/profile_gather.py:21"),
     "gather_windows": ("mcptam_tpu_torch/csrc/gather.cu",
                        "mcptam_tpu/ops/pallas_gather.py:26"),
+    "search_patches": ("mcptam_tpu_torch/csrc/search.cu",
+                       "mcptam_tpu/ops/pallas_gather.py:26 (K2 on the tracker's path, "
+                       "with mcptam_tpu/ops/batch_patch.py:165 find_patches)"),
     "esm_align_all": ("mcptam_tpu_torch/csrc/esm.cu",
                       "mcptam_tpu/ops/sbi_pallas.py:85"),
     "spd_solve_blocked": ("mcptam_tpu_torch/csrc/spd.cu",
                           "mcptam_tpu/core/spd.py:99"),
+    "spd_solve_blocked_global": ("mcptam_tpu_torch/csrc/spd.cu",
+                                 "mcptam_tpu/core/spd.py:99 (K4 beyond shared memory)"),
     "spd_solve_simple": ("mcptam_tpu_torch/csrc/spd.cu",
                          "mcptam_tpu/core/spd.py:33"),
 }
@@ -474,8 +504,220 @@ def check_spd(sf, sf_b, gen):
     return out, sizes
 
 
+def record_searches(sys_, batch):
+    """The arguments of every find_patches call of one process_frames batch
+    (the tracker's coarse and fine search of each frame), cloned."""
+    import torch
+    from mcptam_tpu_torch.ops import batch_patch
+
+    calls, orig = [], batch_patch.find_patches
+
+    def keep(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def recorded(*a, **k):
+        calls.append((tuple(keep(x) for x in a), {n: keep(v) for n, v in k.items()}))
+        return orig(*a, **k)
+
+    batch_patch.find_patches = recorded
+    try:
+        sys_.process_frames(batch)
+        sys_.flush_pipeline()
+    finally:
+        batch_patch.find_patches = orig
+    return calls
+
+
+def check_search(calls):
+    """K2's fused search against search_patches_reference on a tracked
+    frame's coarse (K=60, R=8) and fine (K=1000, R=10) calls: the real
+    packed atlas, templates and predictions.  sum_p and sum_p2 bit-exact,
+    region_ok equal; found and the best offset agree on SEARCH_AGREE of the
+    pairs and every disagreement is a near-tie; where they agree the
+    (15,15) windows are equal and the subpixel refinement lands within
+    SUBPIX_TOL.  Timed at both shapes.  Returns the fine row and a row for
+    each shape."""
+    import torch
+    from mcptam_tpu_torch.config import TrackerConfig
+    from mcptam_tpu_torch.ops.batch_patch import subpix_refine_region
+    from mcptam_tpu_torch.ops.search_kernel import (
+        WSZ, search_patches, search_patches_reference,
+    )
+
+    tcfg = TrackerConfig()
+    stages = (("coarse", -(-tcfg.coarse_range // 4), tcfg.coarse_sub_pix_its),
+              ("fine", tcfg.fine_range_first, tcfg.fine_sub_pix_its))
+    err, sizes = 0.0, []
+    for stage, R, its in stages:
+        args, kw = next(c for c in calls if c[0][6] == R)
+        packed, level_hw, cam, lvl, tmpl, pred = args[:6]
+        K, S = cam.shape[0], 2 * R + 1
+        box_k = torch.empty((2, K, S, S), device=packed.device)
+        box_p = torch.empty_like(box_k)
+        fk, pk, sk, ak = search_patches(*args, **kw, box=box_k)
+        fp, pp, sp, ap = search_patches_reference(*args, **kw, box=box_p)
+        rk, ck = subpix_refine_region(ak, level_hw, lvl, tmpl, pk, its)
+        rp, cp = subpix_refine_region(ap, level_hw, lvl, tmpl, pp, its)
+        torch.cuda.synchronize()
+        if not torch.equal(box_k, box_p):
+            raise AssertionError(f"search_patches {stage}: sum_p / sum_p2 differ from the "
+                                 f"plain box sums by {(box_k - box_p).abs().max().item()}")
+        if not torch.equal(ak["region_ok"], ap["region_ok"]):
+            raise AssertionError(f"search_patches {stage}: region_ok differs")
+        agree = ((fk == fp) & (pk == pp).all(-1) & (ak["by"] == ap["by"])
+                 & (ak["bx"] == ap["bx"]))
+        tie = torch.isclose(sk, sp, rtol=SEARCH_TIE, atol=SEARCH_TIE)
+        same_win = (ak["win"] == ap["win"]).reshape(K, -1).all(-1)
+        both = agree & fk
+        conv = both & ck & cp
+        sub = (rk - rp)[conv].abs().max().item() if bool(conv.any()) else 0.0
+        fin = agree & torch.isfinite(sp)
+        e = (sk - sp)[fin].abs().max().item() if bool(fin.any()) else 0.0
+        frac, n_found = agree.float().mean().item(), int(fk.sum())
+        print(f"  search_patches {stage} K={K} R={R}: agree {frac:.4f}, "
+              f"{int((~agree).sum())} near-tie disagreements, found {n_found} "
+              f"(plain {int(fp.sum())}), best ZMSSD max |d| {e:.3g}, subpixel max |d| {sub:.3g}")
+        if (frac < SEARCH_AGREE or not bool(tie[~agree].all())
+                or not bool(same_win[agree].all()) or not sub <= SUBPIX_TOL
+                or not torch.equal(ck[both], cp[both]) or n_found == 0):
+            raise AssertionError(f"search_patches {stage} disagrees with its plain version: "
+                                 f"agree {frac}, non-tie disagreements "
+                                 f"{int((~agree & ~tie).sum())}, windows equal "
+                                 f"{bool(same_win[agree].all())}, subpixel {sub}")
+        err = max(err, e)
+        ms_k = time_ms(lambda: search_patches(*args, **kw))
+        ms_p = time_ms(lambda: search_patches_reference(*args, **kw))
+        G, G2 = S + 8, S + 14
+        # in: the region, the template, prediction, camera and level, the
+        # exhaustive flag; out: the window, found, region_ok, position,
+        # score, offset.  Operations: the cross term's 64 FMAs and ~30 for
+        # box sums, score and masks an offset, 22 a row sum
+        n_bytes = K * (G2 * G2 * 4 + 64 * 4 + 8 + 16 + 1) + K * (WSZ * WSZ * 4 + 2 + 12 + 16)
+        b_ms, b_by = bound(n_bytes, K * (S * S * (2 * 64 + 30) + G * S * 22))
+        sizes.append({"stage": stage, "K": K, "R": R, "max_abs_err": e, "agree": frac,
+                      "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None})
+        print(f"  search_patches {stage} K={K} R={R}: kernel {ms_k:.4f} ms, plain "
+              f"{ms_p:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    t = sizes[-1]
+    return (err, t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]), None), sizes
+
+
+def device_ops_per_frame(sys_, batch) -> float:
+    """Device operations (kernels, copies, sets) a frame of one
+    process_frames batch, from a torch.profiler window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sys_.process_frames(batch)
+        sys_.flush_pipeline()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sum(e.count for e in on_dev) / batch.shape[0]
+
+
+def check_sbi_resize(dev):
+    """make_sbi and K3 on a RESIZE_H x RESIZE_W rig, whose half-sample chain
+    ends at 30x47: the card's SBIs (through K1's features, K6/K7 and the
+    linear resize) within SBI_TOL of the CPU's, then the tracker's ESM call
+    between two frames' SBIs, the kernel against its plain version within
+    ESM_TOL."""
+    import torch
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import make_rig, render_rig
+    from mcptam_tpu_torch.map.keyframe import make_frame_features
+    from mcptam_tpu_torch.ops.sbi import make_sbi
+    from mcptam_tpu_torch.ops.sbi_kernel import esm_align, esm_align_all
+
+    cams, cfb = make_rig(C, RESIZE_H, RESIZE_W, spread_deg=25.0, device=dev)
+    imgs = [torch.clamp(render_rig(cams, cfb, SE3.exp(torch.tensor(
+        traj_tangent(i), dtype=torch.float32, device=dev)), SEED, RESIZE_H, RESIZE_W),
+        0, 255).to(torch.uint8) for i in (0, 1)]
+    feats = [make_frame_features(im) for im in imgs]
+    d = max((f.sbi.cpu() - make_sbi(im.to(torch.float32).cpu())).abs().max().item()
+            for f, im in zip(feats, imgs))
+    args = (feats[0].sbi, feats[1].sbi, feats[1].sbi_gx, feats[1].sbi_gy)
+    se2_k, score_k = esm_align_all(*args, n_iterations=9)
+    se2_p, _ = esm_align(*args, n_iterations=9)
+    torch.cuda.synchronize()
+    e = (se2_k - se2_p).abs().max().item()
+    print(f"  make_sbi at {RESIZE_H}x{RESIZE_W}: {tuple(feats[0].sbi.shape)}, card vs CPU "
+          f"max |d| {d:.3g}; esm_align_all C={C} 9 iterations: se2 err {e:.3g}, "
+          f"se2 {se2_k[0].tolist()}")
+    if tuple(feats[0].sbi.shape) != (C, 30, 40) or not d <= SBI_TOL:
+        raise AssertionError(f"make_sbi at {RESIZE_H}x{RESIZE_W}: shape "
+                             f"{tuple(feats[0].sbi.shape)}, card vs CPU {d}")
+    if not e <= ESM_TOL or not (torch.isfinite(se2_k).all() and torch.isfinite(score_k).all()):
+        raise AssertionError(f"esm_align_all on the resized SBIs: se2 differs by {e}")
+
+
+def pad_poses(prob, n_poses: int):
+    """The bundle problem placed in an n_poses capacity: fixed identity
+    poses without measurements fill the slots, so the reduced camera
+    system grows to n = 6 n_poses with unit rows for them."""
+    import torch
+    from mcptam_tpu_torch.core.se3 import SE3
+
+    extra = n_poses - prob.movable_a.shape[0]
+    eye = SE3.identity((extra,), device=prob.movable_a.device)
+    return prob.replace(
+        pose_a=SE3(R=torch.cat([prob.pose_a.R, eye.R]), t=torch.cat([prob.pose_a.t, eye.t])),
+        movable_a=torch.cat([prob.movable_a, torch.zeros_like(prob.movable_a[:1]).expand(extra)]))
+
+
+def check_spd_global(sf, sf_b, gen):
+    """K4's global path at n in SPD_GLOBAL_SIZES on random SPD (relative
+    SPD_TOL against the plain solve) and on the Schur matrix of phase 5's
+    problem placed in a CAPACITY_MKFS capacity (backward error at most 10x
+    the plain solver's).  Timed at every size beside torch.linalg.solve
+    (the plain version) and torch.linalg.cholesky + torch.cholesky_solve.
+    Returns the row at n = 6 CAPACITY_MKFS and a row for each size."""
+    import torch
+    from mcptam_tpu_torch.core.spd import route, spd_solve_kernel, spd_solve_reference
+
+    dev = sf.device
+    cases = [(f"random n={n}", random_spd(n, gen, dev), torch.randn(n, 1, generator=gen).to(dev))
+             for n in SPD_GLOBAL_SIZES]
+    cases.append((f"schur n={sf.shape[0]}", sf.contiguous(), sf_b.reshape(-1, 1).contiguous()))
+    err_abs, sizes = 0.0, []
+    for label, A, b in cases:
+        n = A.shape[0]
+        if route(n, 1) != "spd_solve_blocked_global":
+            raise AssertionError(f"spd_solve n={n} does not take the global path")
+        x = spd_solve_kernel(A, b)
+        x_plain = spd_solve_reference(A, b)
+        torch.cuda.synchronize()
+        d = (x - x_plain).abs().max().item()
+        rel = d / max(x_plain.abs().max().item(), 1e-30)
+        bwd, bwd_plain = backward_error(A, x, b), backward_error(A, x_plain, b)
+        ok = rel <= SPD_TOL if label.startswith("random") else bwd <= 10 * bwd_plain
+        print(f"  spd_solve_blocked_global {label}: rel err vs plain {rel:.3g}, backward "
+              f"error {bwd:.3g} (plain {bwd_plain:.3g})")
+        if not (torch.isfinite(x).all() and ok):
+            raise AssertionError(f"spd_solve_blocked_global {label}: relative error {rel}, "
+                                 f"backward error {bwd} (plain {bwd_plain})")
+        err_abs = max(err_abs, d)
+        if label.startswith("random"):
+            k_ms = time_ms(lambda: spd_solve_kernel(A, b))
+            p_ms = time_ms(lambda: spd_solve_reference(A, b))
+            chol_ms = time_ms(lambda: torch.cholesky_solve(b, torch.linalg.cholesky(A)))
+            b_ms, b_by = bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n)
+            sizes.append({"n": n, "max_abs_err": d, "ms": k_ms, "plain_ms": p_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": p_ms,
+                          "cholesky_solve_ms": chol_ms})
+            print(f"  spd_solve_blocked_global n={n} m=1: kernel {k_ms:.4f} ms, plain = "
+                  f"torch.linalg.solve {p_ms:.4f} ms, cholesky + cholesky_solve "
+                  f"{chol_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    row = next(r for r in sizes if r["n"] == 6 * CAPACITY_MKFS)
+    return (err_abs, row["ms"], row["plain_ms"], (row["bound_ms"], row["bound_by"]),
+            row["library_ms"]), sizes
+
+
 def phase_lm(dev, card):
-    """Phase 5.  Returns the spd_solve_simple launches of the K5 run."""
+    """Phase 5.  Returns the launches of the K5 run and of the capacity
+    run on K4's global path."""
     import torch
     from mcptam_tpu_torch import backend
     from mcptam_tpu_torch.ba.bundle import (
@@ -533,7 +775,43 @@ def phase_lm(dev, card):
           f"{launches} launches")
     if not rel <= LM_COST_TOL or launches <= 0:
         raise AssertionError("the K5 LM run disagrees or never launched K5")
-    return launches
+
+    # the timed problem in a CAPACITY_MKFS capacity (n = 384, past K4's
+    # shared range), on K4's global path and then on the plain solver, in
+    # float64 (the gate) and in float32
+    from mcptam_tpu_torch.ba import bundle
+    from mcptam_tpu_torch.core.spd import spd_solve_reference
+
+    cap = pad_poses(prob, CAPACITY_MKFS)
+
+    def run_cap():
+        st_c = create_lm_state(cap)
+        for _ in range(6):
+            st_c = lm_run(cap, st_c, cams, 10, fixed_b=True)
+        return float(st_c.cost)
+
+    def plain(dtype):
+        return lambda A, b: spd_solve_reference(A.to(dtype), b.to(dtype)[:, None])[:, 0].float()
+
+    backend.reset_launch_counts()
+    cost_global = run_cap()
+    launches_global = backend.kernel_report()["spd_solve_blocked_global"]
+    costs, orig = {}, bundle.spd_solve
+    for dtype in (torch.float64, torch.float32):
+        bundle.spd_solve = plain(dtype)
+        try:
+            costs[dtype] = run_cap()
+        finally:
+            bundle.spd_solve = orig
+    rel = abs(cost_global - costs[torch.float64]) / max(abs(costs[torch.float64]), 1e-30)
+    print(f"lm at a {CAPACITY_MKFS}-MKF capacity (n = {6 * CAPACITY_MKFS}): cost "
+          f"{cost_global:.7g} on spd_solve_blocked_global vs {costs[torch.float64]:.7g} on the "
+          f"plain solver in float64 (rel {rel:.3g}, tol {CAPACITY_COST_TOL}) and "
+          f"{costs[torch.float32]:.7g} in float32; unpadded {cost_blocked:.7g}; "
+          f"{launches_global} launches")
+    if not rel <= CAPACITY_COST_TOL or launches_global <= 0:
+        raise AssertionError("the capacity LM run disagrees or never took K4's global path")
+    return {"spd_solve_simple": launches, "spd_solve_blocked_global": launches_global}
 
 
 class GatherShapes:
@@ -662,7 +940,8 @@ def phase_mapping(cams, cfb, cams_sbi, frames, poses, card):
         raise AssertionError("mapping: no MKF was integrated")
     if not any(acc > 0 for _, acc, _ in mm.ba_log):
         raise AssertionError(f"mapping: no BA finished with accepted steps: {mm.ba_log}")
-    for k in ("fast_frontend", "gather_windows", "esm_align_all", "spd_solve_blocked"):
+    for k in ("fast_frontend", "gather_windows", "search_patches", "esm_align_all",
+              "spd_solve_blocked"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the mapping path")
     # K1 once a frame; the batch drain computes the features of each frame
@@ -788,8 +1067,8 @@ def phase_live(cams, cfb, cams_sbi, frames, poses, card):
     if mean_found < MIN_FOUND or not ate < MAX_ATE:
         raise AssertionError(f"live gates failed: mean_found {mean_found} (>= {MIN_FOUND}), "
                              f"ATE {ate} (< {MAX_ATE})")
-    for k in ("fast_frontend", "gather_windows", "esm_align_all", "half_sample",
-              "gather_unaligned"):
+    for k in ("fast_frontend", "gather_windows", "search_patches", "esm_align_all",
+              "half_sample", "gather_unaligned"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the live path")
     if launches["fast_frontend"] != n_frames:      # K1 once a frame
@@ -864,6 +1143,9 @@ def main() -> int:
         build_groundtruth_map, make_rig, make_sbi_cams, render_rig,
     )
     from mcptam_tpu_torch.map.keyframe import make_frame_features
+    from mcptam_tpu_torch.map.state import clone_tree
+    from mcptam_tpu_torch.ops import batch_patch
+    from mcptam_tpu_torch.ops.search_kernel import search_patches_reference
     from mcptam_tpu_torch.system.system import System
 
     # ---- 1. device and card
@@ -910,9 +1192,21 @@ def main() -> int:
         make_frame_features(frames[0]), feats1)
     results["half_sample"] = check_half_sample(frames[0].to(torch.float32))
     results["gather_unaligned"] = check_gather_unaligned(feats1, gen)
-    spd_results, spd_sizes = check_spd(*schur_system(*lm_problem(dev)), gen)
+    lm_prob, lm_cams = lm_problem(dev)
+    spd_results, spd_sizes = check_spd(*schur_system(lm_prob, lm_cams), gen)
     results.update(spd_results)
     sizes.update(spd_sizes)
+    results["spd_solve_blocked_global"], sizes["spd_solve_blocked_global"] = check_spd_global(
+        *schur_system(pad_poses(lm_prob, CAPACITY_MKFS), lm_cams), gen)
+    # the fused search on the coarse and fine calls of a tracked batch, on
+    # a System of its own over a copy of the map
+    rec = System(cams, cfb, cams_sbi, H, W, tcfg=TrackerConfig(), max_points=MAX_POINTS,
+                 max_mkfs=MAX_MKFS, max_meas=MAX_MEAS, pipeline_depth=2 * B)
+    rec.ms, rec.initialized = clone_tree(ms), True
+    rec.vars["AddingMKFs"] = False
+    results["search_patches"], sizes["search_patches"] = check_search(
+        record_searches(rec, torch.stack(frames[:B])))
+    check_sbi_resize(dev)
     for k, (err, ms_k, ms_p, (b_ms, b_by), lib_ms) in results.items():
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {k}: max_abs_err {err} kernel {ms_k:.4f} ms plain {ms_p:.4f} ms "
@@ -950,9 +1244,12 @@ def main() -> int:
     if mean_found < MIN_FOUND or max_err >= MAX_POSE_ERR:
         raise AssertionError(f"quality gates failed: mean_found {mean_found} "
                              f"(>= {MIN_FOUND}), max_pose_err {max_err} (< {MAX_POSE_ERR})")
-    for k in ("fast_frontend", "gather_windows", "esm_align_all", "half_sample"):
+    for k in ("fast_frontend", "search_patches", "esm_align_all", "half_sample"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the tracking path")
+    if launches["search_patches"] != 2 * N_POSES:   # the coarse and fine search
+        raise AssertionError(f"tracking: search_patches launched {launches['search_patches']} "
+                             f"times for {N_POSES} frames")
     if launches["fast_frontend"] != N_POSES:       # K1 once a frame
         raise AssertionError(f"tracking: fast_frontend launched {launches['fast_frontend']} "
                              f"times for {N_POSES} frames")
@@ -971,9 +1268,21 @@ def main() -> int:
     print(f"slice timed pass: {N_POSES / dt:.2f} frames/s "
           f"({dt * 1e3 / N_POSES:.3f} ms/frame, B={B}, max_pose_err "
           f"{max_err2:.6f}) on {card}")
+    # device operations of a tracked frame: the fused search, then the
+    # plain search (the window gather and the eager operators) in its place
+    ops_fused = device_ops_per_frame(sys_, batches[0])
+    fused = batch_patch.find_patches
+    batch_patch.find_patches = search_patches_reference
+    try:
+        ops_plain = device_ops_per_frame(sys_, batches[0])
+    finally:
+        batch_patch.find_patches = fused
+    print(f"tracking: {ops_plain:.1f} device ops a frame with the plain search, "
+          f"{ops_fused:.1f} with the fused search kernel (torch.profiler, B={B}) on {card}")
 
-    # ---- 5. LM on the benchmark's global problem; K5's path
-    launches_k5 = phase_lm(dev, card)
+    # ---- 5. LM on the benchmark's global problem; K5's path; K4's global
+    # path at a 64-MKF capacity
+    launches_lm = phase_lm(dev, card)
 
     # ---- 6. mapping: process_frames with the map-maker ticking
     launches_map = phase_mapping(cams, cfb, cams_sbi, frames, poses, card)
@@ -981,10 +1290,11 @@ def main() -> int:
     # ---- 7. live: process_frame from an empty map
     launches_live = phase_live(cams, cfb, cams_sbi, frames, poses, card)
     launches = dict(launches_live)
-    # BA's kernels are read from their own paths: K4 from mapping, K5 from LM
+    # BA's kernels are read from their own paths: K4 from mapping, K5 and
+    # K4's global path from LM
     launches["spd_solve_blocked"] = launches_map["spd_solve_blocked"]
-    launches["spd_solve_simple"] = launches_k5
-    by_phase = {"tracking": launches_track, "lm": {"spd_solve_simple": launches_k5},
+    launches.update(launches_lm)
+    by_phase = {"tracking": launches_track, "lm": launches_lm,
                 "mapping": launches_map, "live": launches_live}
 
     kernels = [

@@ -13,8 +13,10 @@ from __future__ import annotations
 LAUNCHES = {
     "fast_frontend": 0,   # ops/fast_kernel.py, csrc/fast.cu
     "gather_windows": 0,  # ops/gather_kernel.py, csrc/gather.cu
+    "search_patches": 0,  # ops/search_kernel.py, csrc/search.cu (the tracker's K2)
     "esm_align_all": 0,   # ops/sbi_kernel.py, csrc/esm.cu
     "spd_solve_blocked": 0,  # core/spd.py, csrc/spd.cu (K4)
+    "spd_solve_blocked_global": 0,  # core/spd.py, csrc/spd.cu (K4's global path)
     "spd_solve_simple": 0,   # core/spd.py, csrc/spd.cu (K5)
     "half_sample": 0,        # ops/halfsample_kernel.py, csrc/halfsample.cu (K6/K7)
     "gather_unaligned": 0,   # ops/gather_unaligned_kernel.py, csrc/gather_unaligned.cu (K8)

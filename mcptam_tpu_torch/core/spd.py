@@ -5,11 +5,13 @@ mcptam_tpu/core/spd.py).
 ``csrc/spd.cu``: the blocked variant (K4) by default, the unblocked one
 (K5) under ``MCPTAM_SPD_KERNEL=simple``, as the reference picks its Pallas
 kernel.  On a CPU tensor it takes ``spd_solve_reference``, the stock solver,
-as the reference does off the TPU.  Both kernels keep the packed factor and
-the right-hand sides in one block's shared memory and raise on a system
-too large for it: n <= 322 at m = 1 for K4, which also keeps its current
-panel there (transposed, PB x (n - PB + 32)) beside the panel's diagonal
-block, and n <= 339 for K5.
+as the reference does off the TPU.  K4 keeps the packed factor, its
+current panel (transposed, PB x (n - PB + 32)), the panel's diagonal block
+and the right-hand sides in one block's shared memory up to n = 322 at
+m = 1; larger systems (the mapping LM's n = 6 x max_mkfs from 54 MKFs on)
+take its global path, the same schedule with the factor in a global
+workspace, up to n = 3384 at m = 1.  K5 keeps everything in shared memory
+and raises beyond n = 339.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from mcptam_tpu_torch import backend
 
 MAX_SHARED_BYTES = 232448  # 227 KB: the most shared memory one block may use
 K4_PB = 16  # K4's panel width (csrc/spd.cu PB)
+K4_GLOBAL_THREADS = 1024  # its global path's threads (csrc/spd.cu THREADS_GLOBAL)
 
 
 def shared_bytes(n: int, m: int, blocked: bool = True) -> int:
@@ -34,6 +37,41 @@ def shared_bytes(n: int, m: int, blocked: bool = True) -> int:
         ld = (max(n - K4_PB, 0) + 3) // 4 * 4 + 32
         floats += K4_PB * ld + K4_PB * K4_PB + K4_PB
     return 4 * floats
+
+
+def shared_bytes_global(n: int, m: int) -> int:
+    """Shared memory of K4's global path (csrc/spd.cu
+    ``global_front_floats``): the panel, the diagonal block and the pivot
+    scales, or one 32 x 33 transpose tile a warp while A is read, then the
+    rhs.  The factor lives in a global workspace."""
+    ld = (max(n - K4_PB, 0) + 3) // 4 * 4 + 32
+    panel = K4_PB * ld + K4_PB * K4_PB + K4_PB
+    tiles = K4_GLOBAL_THREADS // 32 * 32 * 33
+    return 4 * (max(panel, tiles) + n * m)
+
+
+def route(n: int, m: int, blocked: bool = True) -> str:
+    """The kernel an (n, m) system takes: the launch-count key of K4
+    (``spd_solve_blocked``), of its global path
+    (``spd_solve_blocked_global``) or of K5 (``spd_solve_simple``).
+    Raises for a system no kernel takes."""
+    if n <= 0 or m <= 0:
+        raise ValueError(f"spd_solve_kernel: empty system n={n}, m={m}")
+    if not blocked:
+        if shared_bytes(n, m, False) > MAX_SHARED_BYTES:
+            raise ValueError(
+                f"spd_solve_kernel: n={n}, m={m} is beyond the simple kernel's "
+                f"range (its factor needs {shared_bytes(n, m, False)} B of shared "
+                f"memory, above {MAX_SHARED_BYTES} B); the blocked default "
+                "(MCPTAM_SPD_KERNEL unset) solves it")
+        return "spd_solve_simple"
+    if shared_bytes(n, m) <= MAX_SHARED_BYTES:
+        return "spd_solve_blocked"
+    if shared_bytes_global(n, m) <= MAX_SHARED_BYTES:
+        return "spd_solve_blocked_global"
+    raise ValueError(f"spd_solve_kernel: n={n}, m={m} needs "
+                     f"{shared_bytes_global(n, m)} B of shared memory on the "
+                     f"global path, above the {MAX_SHARED_BYTES} B a block may use")
 
 
 def kernel_name() -> str:
@@ -63,19 +101,20 @@ def spd_solve_kernel(A: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"spd_solve_kernel: bad shapes {tuple(A.shape)}, "
                          f"{tuple(B.shape)}")
     m = B.shape[1]
-    need = shared_bytes(n, m, blocked)
-    if n == 0 or m == 0 or need > MAX_SHARED_BYTES:
-        raise ValueError(f"spd_solve_kernel: n={n}, m={m} needs "
-                         f"{need} B of shared memory, above "
-                         f"the {MAX_SHARED_BYTES} B a block may use")
+    which = route(n, m, blocked)
     from mcptam_tpu_torch.csrc._build import check, load
 
     X = torch.empty((n, m), dtype=torch.float32, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = load().mcptam_spd_solve(A.data_ptr(), B.data_ptr(), X.data_ptr(),
-                                  n, m, int(blocked), stream)
-    check(err, "spd_solve")
-    backend.LAUNCHES["spd_solve_blocked" if blocked else "spd_solve_simple"] += 1
+    if which == "spd_solve_blocked_global":
+        work = torch.empty(n * (n + 1) // 2, dtype=torch.float32, device=A.device)
+        err = load().mcptam_spd_solve_global(A.data_ptr(), B.data_ptr(), X.data_ptr(),
+                                             work.data_ptr(), n, m, stream)
+    else:
+        err = load().mcptam_spd_solve(A.data_ptr(), B.data_ptr(), X.data_ptr(),
+                                      n, m, int(blocked), stream)
+    check(err, which)
+    backend.LAUNCHES[which] += 1
     return X
 
 

@@ -24,13 +24,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
 SOURCES = ("common.cu", "fast.cu", "gather.cu", "esm.cu", "spd.cu",
-           "halfsample.cu", "gather_unaligned.cu")
+           "halfsample.cu", "gather_unaligned.cu", "search.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; each returns a cudaError_t as int
 ENTRY_POINTS = {
     "mcptam_fast_frontend_levels": [_P] * 2 + [_I] * 2 + [_P] * 2,
@@ -38,8 +38,10 @@ ENTRY_POINTS = {
     "mcptam_gather_windows_u8": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_esm_align_all": [_P] * 6 + [_I] * 2 + [_P],
     "mcptam_spd_solve": [_P] * 3 + [_I] * 3 + [_P],
+    "mcptam_spd_solve_global": [_P] * 4 + [_I] * 2 + [_P],
     "mcptam_half_sample": [_P] * 2 + [_I] * 3 + [_P],
     "mcptam_gather_unaligned": [_P] * 4 + [_I] * 4 + [_P],
+    "mcptam_search_patches": [_P] * 9 + [_I, _P, _F, _F] + [_I] * 4 + [_P] * 9,
 }
 
 _lock = threading.Lock()

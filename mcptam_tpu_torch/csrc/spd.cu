@@ -48,6 +48,17 @@
 //   diagonal block or of a substitution costs on the card is the latency
 //   of its shuffles, not the arithmetic.
 //
+// * blocked, global path (K4 beyond shared memory, n > 322 at m = 1: the
+//   mapping LM's system is n = 6 x max_mkfs, so 54 MKFs and up): the same
+//   schedule and arithmetic over 1024 threads, with the packed factor in
+//   a global workspace the wrapper allocates (L2-resident up to n ~ 3000)
+//   and the panel, the diagonal block, the pivot scales and the rhs in
+//   shared memory.  The TPU kernel padded n to 128 and kept it all in
+//   VMEM; one SM's shared memory holds 227 KB.  The factor's n^3/6 FMAs
+//   run on one SM (at least 2.4 ms at n = 1536 at its FP32 rate) and its
+//   trailing triangle crosses L2 once a panel: right first, spreading the
+//   update over SMs is later work.
+//
 // * simple (K5): one pivot and one rank-1 update at a time, as the TPU
 //   kernel does, with ONE block barrier per pivot, 1024 threads.  The
 //   working matrix is the packed UPPER triangle U, row r holding columns
@@ -83,6 +94,7 @@
 namespace {
 
 constexpr int THREADS = 512;  // the blocked variant
+constexpr int THREADS_GLOBAL = 1024;  // its global path
 constexpr int PB = 16;        // panel width of the blocked variant
 constexpr int RT = 16;        // rows a lane takes in a trailing-update job
 static_assert(PB % RT == 0 && PB <= 32, "the next diagonal block is whole jobs of one column block");
@@ -108,6 +120,14 @@ __host__ __device__ __forceinline__ int k4_ld(int n) {
 __host__ __device__ __forceinline__ size_t shared_floats(bool blocked, int n, int m) {
   return (blocked ? (size_t)PB * k4_ld(n) + PB * PB + PB : 0) + (size_t)n * (n + 1) / 2 +
          (size_t)n * m;
+}
+
+// K4's global path keeps in shared memory, ahead of the right-hand sides,
+// Pt, Dt and dinv, or, while A is read, one 32 x 33 transpose tile a warp
+__host__ __device__ __forceinline__ size_t global_front_floats(int n) {
+  const size_t panel = (size_t)PB * k4_ld(n) + PB * PB + PB;
+  const size_t tiles = (size_t)(THREADS_GLOBAL / 32) * 32 * 33;
+  return panel > tiles ? panel : tiles;
 }
 
 // Both substitutions for one right-hand side x (n) in shared memory, where
@@ -263,15 +283,19 @@ __device__ __forceinline__ void k4_diagonal(float* L, float* Dt, float* dinv, in
 // the trailing triangle takes the panel's rank-PB update while warp 0
 // updates and factors the next diagonal block (look-ahead): that block's
 // update is exactly the first PB / RT jobs, which no other warp takes.
-__device__ __forceinline__ void k4_factor(int n) {
+//
+// T threads; GL: L is the global workspace Lg (the global path), else it
+// follows dinv in shared memory.
+template <int T, bool GL>
+__device__ __forceinline__ void k4_factor(float* Lg, int n) {
   extern __shared__ float4 k4_smem[];
   float* Pt = reinterpret_cast<float*>(k4_smem);
   float* Dt = Pt + PB * k4_ld(n);
   float* dinv = Dt + PB * PB;
-  float* L = dinv + PB;
+  float* L = GL ? Lg : dinv + PB;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  constexpr int NW = THREADS / 32;
+  constexpr int NW = T / 32;
   const int ld = k4_ld(n);
   if (warp == 0) k4_diagonal(L, Dt, dinv, 0, n);
   __syncthreads();
@@ -279,7 +303,7 @@ __device__ __forceinline__ void k4_factor(int n) {
     const int pe = p0 + PB;
 
     // the panel's rows below the block, a row a thread
-    for (int i = pe + tid; i < n; i += THREADS) {
+    for (int i = pe + tid; i < n; i += T) {
       float* row = L + tri(i, p0);
       float a[PB];
 #pragma unroll
@@ -371,13 +395,62 @@ spd_blocked_kernel(const float* __restrict__ A, const float* __restrict__ B,
   for (int e = tid; e < n * m; e += THREADS) x[e] = B[e];
   __syncthreads();
 
-  k4_factor(n);
+  k4_factor<THREADS, false>(nullptr, n);
 
   const auto lo = [](int i, int j) { return tri(i, j); };
   if (m == 1)
     solve_rhs(L, lo, x, X, n, THREADS);
   else
     solve_block(L, lo, x, X, n, m, THREADS);
+}
+
+// K4's global path, for systems whose packed factor does not fit one
+// block's shared memory (n > 322 at m = 1): the same schedule, with the
+// packed lower factor in the global workspace Lg (n(n+1)/2 floats; 4.7 MB
+// at n = 1536, inside the 50 MB L2) and Pt, Dt, dinv and the right-hand
+// sides in shared memory.  A's upper triangle reaches Lg by 32x32 tiles
+// through shared memory (one a warp, in the space Pt takes later), read
+// along A's rows and written along Lg's, both coalesced.  One block of
+// THREADS_GLOBAL threads: the trailing update, n^3/6 FMAs at most, runs
+// on one SM and reads and writes the trailing triangle through L2 once a
+// panel.
+__global__ void __launch_bounds__(THREADS_GLOBAL)
+spd_blocked_global_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                          float* __restrict__ X, float* Lg, int n, int m) {
+  extern __shared__ float4 k4_smem[];
+  constexpr int NW = THREADS_GLOBAL / 32;
+  float* smem = reinterpret_cast<float*>(k4_smem);
+  float* x = smem + global_front_floats(n);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  float* tile = smem + warp * 32 * 33;
+  const int nb = (n + 31) / 32;
+  for (int tr = 0, t = 0; tr < nb; ++tr) {
+    for (int tc = tr; tc < nb; ++tc, ++t) {
+      if (t % NW != warp) continue;
+      for (int rr = 0; rr < 32; ++rr) {
+        const int r = 32 * tr + rr, c = 32 * tc + lane;
+        tile[rr * 33 + lane] = (r < n && c < n) ? A[(size_t)r * n + c] : 0.0f;
+      }
+      __syncwarp();
+      for (int cc = 0; cc < 32; ++cc) {
+        const int c = 32 * tc + cc, r = 32 * tr + lane;
+        if (c < n && r <= c) Lg[tri(c, r)] = tile[lane * 33 + cc];
+      }
+      __syncwarp();
+    }
+  }
+  for (int e = tid; e < n * m; e += THREADS_GLOBAL) x[e] = B[e];
+  __syncthreads();
+
+  k4_factor<THREADS_GLOBAL, true>(Lg, n);
+
+  const auto lo = [](int i, int j) { return tri(i, j); };
+  if (m == 1)
+    solve_rhs(Lg, lo, x, X, n, THREADS_GLOBAL);
+  else
+    solve_block(Lg, lo, x, X, n, m, THREADS_GLOBAL);
 }
 
 // K5.  R = ceil(n / 32) row blocks a lane.  Thread (lane, warp) owns the
@@ -563,4 +636,18 @@ extern "C" int mcptam_spd_solve(const float* A, const float* B, float* X,
   static int optin_blocked = 0;
   return blocked ? launch(spd_blocked_kernel, &optin_blocked, THREADS, true, A, B, X, n, m, stream)
                  : launch_simple_rows(A, B, X, n, m, stream);
+}
+
+// K4's global path: the same arguments and the workspace L, n(n+1)/2 f32
+// on the same device.  Returns a cudaError_t.
+extern "C" int mcptam_spd_solve_global(const float* A, const float* B, float* X, float* L,
+                                       int n, int m, cudaStream_t stream) {
+  if (n <= 0 || m <= 0) return cudaErrorInvalidValue;
+  static int optin = 0;
+  const cudaError_t err = opt_in(spd_blocked_global_kernel, &optin);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = sizeof(float) * (global_front_floats(n) + (size_t)n * m);
+  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
+  spd_blocked_global_kernel<<<1, THREADS_GLOBAL, bytes, stream>>>(A, B, X, L, n, m);
+  return cudaGetLastError();
 }

@@ -4,42 +4,32 @@ mcptam_tpu/ops/batch_patch.py, ref src/PatchFinder.cc).
 Stages, each over K (camera, point) pairs at once:
   * warped 8x8 template by bilinear (hat-weight) sampling of the point's
     stored source window (MakeTemplateCoarseCont, :135-182);
-  * dense ZMSSD at every offset of a (G,G) search region from 8-tap box
-    sums and a depthwise cross-correlation in full f32 (FindPatchCoarse +
-    the SSE ZMSSD kernel, :229-355, :491-658), first-index argmin;
-  * inverse-composition subpixel refinement resampled inside the already
-    gathered region (IterateSubPixToConvergence, :396-470).
+  * dense ZMSSD at every offset of a search region, first-index argmin,
+    and the subpixel window at the best offset (FindPatchCoarse + the SSE
+    ZMSSD kernel, :229-355, :491-658): ``ops/search_kernel.py``, one
+    fused CUDA kernel on the card;
+  * inverse-composition subpixel refinement resampled inside that window
+    (IterateSubPixToConvergence, :396-470).
 
-The window gathers go through ``ops/gather_kernel.gather_windows`` (the
-CUDA kernel on the card).  Unlike the reference, tensors keep the pair
-axis first: the reference's pair-axis-last layout served TPU vector lanes.
+The keyframe-store gathers go through ``ops/gather_kernel.gather_windows``
+(the CUDA window gather on the card).  Unlike the reference, tensors keep
+the pair axis first: the reference's pair-axis-last layout served TPU
+vector lanes.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from mcptam_tpu_torch.config import PATCH_SIZE
-from mcptam_tpu_torch.core.levels import level_n_pos, level_zero_pos
+from mcptam_tpu_torch.core.levels import level_n_pos
 from mcptam_tpu_torch.core.linalg import inv3
 from mcptam_tpu_torch.ops.atlas import level_xoff_array, _level0_width_from_atlas
 from mcptam_tpu_torch.ops.gather_kernel import gather_windows
-from mcptam_tpu_torch.ops.patch import HALF, MAX_SSD, PACK_CORNER, _SUBPIX_PAD
+from mcptam_tpu_torch.ops.patch import HALF, _SUBPIX_PAD
+from mcptam_tpu_torch.ops.search_kernel import gather_windows3, search_patches  # noqa: F401
 
 _SRC_HALF = 12  # template source window half-size
-
-
-def gather_windows3(atlas3, cam_idx, level, y0, x0, G: int):
-    """(K,) indices into a (C,H,AW) atlas -> ((K,G,G) f32, (K,) ok).
-    y0/x0 are level-local coords; the level x-offset is added here."""
-    C, H, AW = atlas3.shape
-    xoffs = level_xoff_array(_level0_width_from_atlas(AW), atlas3.device)
-    ax0 = x0 + xoffs[level]
-    ok = (y0 >= 0) & (ax0 >= 0) & (y0 + G <= H) & (ax0 + G <= AW)
-    rows = cam_idx * H + torch.clamp(y0, 0, H - G)
-    cols = torch.clamp(ax0, 0, AW - G)
-    return gather_windows(atlas3.reshape(C * H, AW), rows, cols, G), ok
 
 
 def gather_windows4(atlas4, mkf_idx, cam_idx, level, y0, x0, G: int):
@@ -110,99 +100,16 @@ def make_warped_templates(src_win, win_ok, level_hw, src_level,
     return tmpl, ok
 
 
-def _box8(a, S: int):
-    """(K,G,G) -> (K,S,S) 8x8 window sums (columns first, then rows)."""
-    rows = sum(a[:, :, px : px + S] for px in range(PATCH_SIZE))
-    return sum(rows[:, py : py + S, :] for py in range(PATCH_SIZE))
-
-
-def find_patches(packed_atlas3, level_hw, cam_idx, search_level, templates,
-                 pred_pos_l0, range_l0: int, max_range_l0,
-                 exhaustive=False, max_ssd: float = MAX_SSD):
-    """Batched FindPatchCoarse over K pairs.
-
-    packed_atlas3: pack_corner_atlas(atlas, corner_atlas) (C,H,AW);
-    max_range_l0: scalar tensor radius (<= range_l0) actually enforced.
-    Returns (found (K,), pos_l0 (K,2), best_ssd (K,), aux) where aux
-    carries the gathered region and best offsets for subpix_refine_region."""
-    K = cam_idx.shape[0]
-    lvl_f = search_level.to(torch.float32)
-    scale = torch.exp2(lvl_f)
-    pos_lev = level_n_pos(pred_pos_l0, lvl_f[:, None])
-    r_lev = torch.ceil(max_range_l0 / scale)
-
-    R = range_l0
-    S = 2 * R + 1
-    G = S + PATCH_SIZE
-    P = _SUBPIX_PAD
-    G2 = G + 2 * P  # padded so the subpixel window lies inside the region
-    cxi = torch.round(pos_lev[:, 0]).to(torch.int64)  # half to even
-    cyi = torch.round(pos_lev[:, 1]).to(torch.int64)
-    y0 = cyi - R - HALF
-    x0 = cxi - R - HALF
-    region_raw, region_ok = gather_windows3(
-        packed_atlas3, cam_idx, search_level, y0 - P, x0 - P, G2
-    )
-    flag2 = region_raw >= PACK_CORNER / 2
-    region2 = region_raw - PACK_CORNER * flag2.to(region_raw.dtype)
-    region = region2[:, P : P + G, P : P + G]
-    is_corner = flag2[:, P + HALF : P + HALF + S, P + HALF : P + HALF + S]
-
-    n = PATCH_SIZE * PATCH_SIZE
-    t = templates                                                # (K,8,8)
-    sum_t = torch.sum(t, (1, 2))[:, None, None]
-    sum_t2 = torch.sum(t * t, (1, 2))[:, None, None]
-    sum_p = _box8(region, S)
-    sum_p2 = _box8(region * region, S)
-    # cross-correlation as one depthwise convolution (K groups), full f32
-    cross = F.conv2d(region[None], t[:, None], groups=K)[0][:, :S, :S]
-    scores = sum_p2 - 2.0 * cross + sum_t2 - (sum_p - sum_t) ** 2 / n
-
-    hs, ws = level_hw
-    h_l = hs[search_level].to(torch.float32)[:, None, None]
-    w_l = ws[search_level].to(torch.float32)[:, None, None]
-    d = torch.arange(S, dtype=torch.float32, device=t.device) - R
-    yy = cyi.to(torch.float32)[:, None, None] + d[None, :, None]  # (K,S,S)
-    xx = cxi.to(torch.float32)[:, None, None] + d[None, None, :]
-    dist_ok = (
-        (yy - pos_lev[:, 1, None, None]) ** 2
-        + (xx - pos_lev[:, 0, None, None]) ** 2
-    ) <= (r_lev * r_lev + 1e-6)[:, None, None]
-    in_bounds = ((xx >= HALF) & (yy >= HALF)
-                 & (xx < w_l - HALF) & (yy < h_l - HALF))
-    exhaustive = torch.as_tensor(exhaustive, device=t.device)
-    if exhaustive.ndim:
-        exhaustive = exhaustive[:, None, None]
-    valid = dist_ok & in_bounds & (is_corner | exhaustive)
-    valid = valid & region_ok[:, None, None]
-    scores = torch.where(valid, scores, torch.full_like(scores, float("inf")))
-
-    flat = scores.reshape(K, S * S)
-    best_ssd, best = torch.min(flat, 1)       # first index of the minimum
-    by = torch.div(best, S, rounding_mode="floor")
-    bx = best % S
-    found = best_ssd < max_ssd
-    pos_lev_best = torch.stack(
-        [(cxi + bx - R).to(torch.float32), (cyi + by - R).to(torch.float32)], -1
-    )
-    pos_l0 = level_zero_pos(pos_lev_best, lvl_f[:, None])
-    aux = dict(region2=region2, region_ok=region_ok, by=by, bx=bx, S=S)
-    return found, pos_l0, best_ssd, aux
+# Batched FindPatchCoarse over K pairs: the fused search kernel on the
+# card, its plain version on the CPU (ops/search_kernel.py).
+find_patches = search_patches
 
 
 def subpix_refine_region(aux, level_hw, search_level, templates, pos_l0,
                          n_its: int = 10, conv_limit: float = 0.03):
-    """Subpixel refinement resampling from the already-gathered search
-    region: the (15,15) iteration window is cut out at the best offset."""
-    region2 = aux["region2"]                       # (K,G2,G2) pixel values
-    by, bx = aux["by"], aux["bx"]
-    WSZ = PATCH_SIZE + 1 + 2 * _SUBPIX_PAD
-    ar = torch.arange(WSZ, device=region2.device)
-    ry = (by[:, None] + ar)[:, :, None]
-    rx = (bx[:, None] + ar)[:, None, :]
-    k = torch.arange(region2.shape[0], device=region2.device)[:, None, None]
-    win = region2[k, ry, rx]                                     # (K,WSZ,WSZ)
-    return _subpix_iterate(win, aux["region_ok"], level_hw, search_level,
+    """Subpixel refinement resampling from the (15,15) window find_patches
+    cut out of its search region at the best offset: no gather."""
+    return _subpix_iterate(aux["win"], aux["region_ok"], level_hw, search_level,
                            templates, pos_l0, n_its, conv_limit)
 
 

@@ -97,7 +97,8 @@ def find_patch_w(atlas4, corner_atlas4, mkf, cam, search_level, template,
     (FindPatchCoarse, src/PatchFinder.cc:229-355).  The sums run in the
     reference's order.  Returns (found, pos_l0 (K,2), best_ssd)."""
     from mcptam_tpu_torch.core.levels import level_n_pos, level_zero_pos
-    from mcptam_tpu_torch.ops.batch_patch import _box8, gather_windows4
+    from mcptam_tpu_torch.ops.batch_patch import gather_windows4
+    from mcptam_tpu_torch.ops.search_kernel import _box8
 
     K = template.shape[0]
     lvl = search_level.long()

@@ -8,6 +8,9 @@ over a leading camera axis.  SE2 state is (cos, sin, tx, ty).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from mcptam_tpu_torch.config import SBI_SIZE
@@ -23,20 +26,47 @@ CENTER = (COLS // 2, ROWS // 2)  # (x, y) = (20, 15)
 DEFAULT_BLUR = 2.5
 
 
+@functools.lru_cache(maxsize=16)
+def _linear_resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_in, n_out) weights of ``jax.image.resize(..., "linear")`` along
+    one axis (jax/_src/image/scale.py::compute_weight_mat, antialias on,
+    no translation): a triangle kernel at half-pixel centres, widened by
+    1/scale when downsampling, each output sample's weights normalised to
+    sum 1, zero where the sample falls outside the input.  Computed in
+    f32 as the reference computes it; cached per device."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = np.sum(w, axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.as_tensor(np.where(inside[None, :], w, f32(0.0)).astype(f32),
+                           device=device)
+
+
 def make_sbi(img_l0: torch.Tensor) -> torch.Tensor:
     """(...,H,W) level-0 image -> (...,30,40) zero-mean blurred template
     (ref MakeFromKF, src/SmallBlurryImage.cc:67-95) by a chain of 2x2
-    half-samples.  Sizes that do not halve down to 30x40 are not taken."""
+    half-samples; where the chain does not end at 30x40 (a 480x752 camera
+    stops at 30x47), the reference's linear resize finishes it: one
+    weight matrix per axis whose size differs, applied by einsum."""
     small = img_l0
     while (
         small.shape[-2] % 2 == 0 and small.shape[-2] // 2 >= ROWS
         and small.shape[-1] % 2 == 0 and small.shape[-1] // 2 >= COLS
     ):
         small = half_sample(small)
-    if tuple(small.shape[-2:]) != (ROWS, COLS):
-        raise ValueError(
-            f"make_sbi: {tuple(img_l0.shape[-2:])} does not halve to "
-            f"{(ROWS, COLS)}; the resize path is not ported")
+    h, w = small.shape[-2:]
+    if h != ROWS:
+        small = torch.einsum("...hw,hr->...rw", small,
+                             _linear_resize_weights(h, ROWS, small.device))
+    if w != COLS:
+        small = torch.einsum("...hw,wc->...hc", small,
+                             _linear_resize_weights(w, COLS, small.device))
     centered = small - torch.mean(small, (-2, -1), keepdim=True)
     return gaussian_blur_3(centered, sigma=DEFAULT_BLUR, radius=4)
 

@@ -1,28 +1,31 @@
 #!/usr/bin/env python3
-"""Time the blocked SPD solve (K4) and the ESM alignment (K3) against an
-earlier version of their CUDA sources, in one process on one GPU.
+"""Time the window gather (K2's plain gather), the blocked SPD solve (K4)
+and the tracker's search against an earlier version of their CUDA
+sources, in one process on one GPU.
 
     git archive <commit> mcptam_tpu_torch/csrc | tar -x -C _parent
     python3 scripts/compare_parent_kernels.py --parent-csrc _parent/mcptam_tpu_torch/csrc [--variants]
 
-The earlier ``spd.cu``, ``esm.cu`` and ``common.cu`` are built with the
+The earlier ``gather.cu``, ``spd.cu`` and ``common.cu`` are built with the
 same nvcc flags into a library of their own and called through their own
-C entry points (``mcptam_spd_solve``, ``mcptam_esm_align_all``).  On
-random SPD matrices (condition number 1e4) at n = 96 and 288 both K4
-versions must agree with the plain solve within chip_smoke.SPD_TOL; on
-the SBI pair of two rendered 4-camera 480x640 frames, at the tracker's
-shape (4 cameras, 9 iterations) and the relocaliser's (1 camera, 12
-iterations), both K3 versions must agree with the plain version within
-chip_smoke.ESM_TOL.  Times are CUDA-event device times (chip_smoke.time_ms)
-taken in turns (earlier, current, current, earlier), K4's beside K5,
-torch.linalg.solve and torch.linalg.cholesky + torch.cholesky_solve.
+C entry points.  Both gathers must be bit-exact against the plain version
+at the tracker's former shape (K = 1000 windows of 35x35 f32) and the
+map-maker's largest call (4096 windows of 26x26 uint8); on random SPD
+matrices (condition number 1e4) at n = 96 and 288 both K4 versions must
+agree with the plain solve within chip_smoke.SPD_TOL.  The tracker's
+search is timed on the coarse and fine calls of a tracked batch: the
+fused kernel (csrc/search.cu) against the earlier path, the window
+gather followed by the eager search (``search_patches_reference``).
+Times are CUDA-event device times (chip_smoke.time_ms) taken in turns
+(earlier, current, current, earlier).
 
-``--variants`` also builds the current sources with K4's panel width
-``PB`` set to 8 (with ``RT`` 8), 16 and 32, its trailing-update row tile
-``RT`` to 8 and 16, and K3's block size ``THREADS`` to 256 and 512 (its named barriers
-allow at most 16 warps), checks each the same way and times each, so that
-the choice in the sources is a measured one.  Prints the card and its
-power limit, and one JSON line of the times.
+``--variants`` also builds the current sources with the search kernel's
+block size ``THREADS``, offset tile ``YW`` x ``XW`` and ``MIN_BLOCKS``
+(the blocks an SM must hold, which caps its registers) set to other
+values, and K4's global path at ``THREADS_GLOBAL`` 512 and 1024, checks
+each the same way as chip_smoke.py and times each, so that the choice in
+the sources is a measured one.  Prints the card and its power limit, and
+one JSON line of the times.
 """
 
 import argparse
@@ -39,15 +42,17 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402  (time_ms, random_spd, card_line, scene)
 
-PANEL_WIDTHS = (8, 16, 32)
-ROW_TILES = (8, 16)
-ESM_BLOCKS = (256, 512)
+# (THREADS, YW, XW, MIN_BLOCKS) of the search kernel; K4's global block sizes
+SEARCH_VARIANTS = ((128, 3, 2, 8), (128, 3, 3, 8), (128, 2, 2, 8), (64, 3, 3, 16),
+                   (256, 2, 2, 4), (128, 3, 2, 4))
+GLOBAL_THREADS = (512, 1024)
+GLOBAL_SIZES = (384, 1536)
 
 
 def build_libs(libs: dict, out_dir: str) -> dict:
     """{name: {source file: text}} -> {name: ctypes.CDLL}: every source in
     its own nvcc process, all at once, then one link a library."""
-    from mcptam_tpu_torch.csrc._build import NVCC_FLAGS, _nvcc
+    from mcptam_tpu_torch.csrc._build import ENTRY_POINTS, NVCC_FLAGS, _nvcc
 
     nvcc = _nvcc()
     jobs = []
@@ -64,24 +69,28 @@ def build_libs(libs: dict, out_dir: str) -> dict:
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     objs = {name: [] for name in libs}
     for name, obj, proc in jobs:
-        _, err = proc.communicate()
+        out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {obj} failed:\n{err}")
+        if name != "earlier":
+            for line in (out + err).splitlines():
+                if any(k in line for k in ("registers", "spill")):
+                    print(f"  ptxas {name}: {line.strip()}")
         objs[name].append(obj)
-    out = {}
-    P, I = ctypes.c_void_p, ctypes.c_int
+    built = {}
     for name, o in objs.items():
         lib_path = os.path.join(out_dir, name, f"lib{name}.so")
         subprocess.run([nvcc, "-shared", "-o", lib_path, *o], check=True)
         lib = ctypes.CDLL(lib_path)
-        if "spd.cu" in libs[name]:
-            lib.mcptam_spd_solve.argtypes = [P] * 3 + [I] * 3 + [P]
-            lib.mcptam_spd_solve.restype = ctypes.c_int
-        if "esm.cu" in libs[name]:
-            lib.mcptam_esm_align_all.argtypes = [P] * 6 + [I] * 2 + [P]
-            lib.mcptam_esm_align_all.restype = ctypes.c_int
-        out[name] = lib
-    return out
+        for entry, argtypes in ENTRY_POINTS.items():
+            fn = getattr(lib, entry, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        lib.mcptam_error_string.argtypes = [ctypes.c_int]
+        lib.mcptam_error_string.restype = ctypes.c_char_p
+        built[name] = lib
+    return built
 
 
 def read_sources(csrc: str, names) -> dict:
@@ -97,27 +106,65 @@ def with_constant(text: str, name: str, value: int) -> str:
     return new
 
 
-def lib_spd(lib, A, b, blocked=True):
+def stream() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def lib_spd(lib, A, b):
     import torch
     X = torch.empty_like(b)
     err = lib.mcptam_spd_solve(A.data_ptr(), b.data_ptr(), X.data_ptr(), A.shape[0],
-                               b.shape[1], int(blocked), torch.cuda.current_stream().cuda_stream)
+                               b.shape[1], 1, stream())
     if err:
         raise RuntimeError(f"spd_solve: CUDA error {err}")
     return X
 
 
-def lib_esm(lib, args, iters):
+def lib_spd_global(lib, A, b):
     import torch
-    C = args[0].shape[0]
-    se2 = torch.empty((C, 4), dtype=torch.float32, device=args[0].device)
-    score = torch.empty((C,), dtype=torch.float32, device=args[0].device)
-    err = lib.mcptam_esm_align_all(*(a.data_ptr() for a in args), se2.data_ptr(),
-                                   score.data_ptr(), C, iters,
-                                   torch.cuda.current_stream().cuda_stream)
+    n = A.shape[0]
+    X = torch.empty_like(b)
+    work = torch.empty(n * (n + 1) // 2, dtype=torch.float32, device=A.device)
+    err = lib.mcptam_spd_solve_global(A.data_ptr(), b.data_ptr(), X.data_ptr(),
+                                      work.data_ptr(), n, b.shape[1], stream())
     if err:
-        raise RuntimeError(f"esm_align_all: CUDA error {err}")
-    return se2, score
+        raise RuntimeError(f"spd_solve_global: CUDA error {err}")
+    return X
+
+
+def lib_gather(lib, plane, rows, cols, G):
+    import torch
+    entry = {torch.float32: lib.mcptam_gather_windows_f32,
+             torch.uint8: lib.mcptam_gather_windows_u8}[plane.dtype]
+    r32, c32 = rows.to(torch.int32), cols.to(torch.int32)
+    out = torch.empty((rows.shape[0], G, G), dtype=torch.float32, device=plane.device)
+    err = entry(plane.data_ptr(), r32.data_ptr(), c32.data_ptr(), out.data_ptr(),
+                rows.shape[0], plane.shape[0], plane.shape[1], G, stream())
+    if err:
+        raise RuntimeError(f"gather_windows: CUDA error {err}")
+    return out
+
+
+class Swapped:
+    """The kernel library with one entry point taken from another build,
+    for ``with``: mcptam_tpu_torch.csrc._build.load returns it meanwhile."""
+
+    def __init__(self, lib, entry: str):
+        from mcptam_tpu_torch.csrc import _build
+        self.build, self.lib, self.entry = _build, lib, entry
+
+    def __getattr__(self, name):
+        return getattr(self.lib if name == self.entry else self.main, name)
+
+    def __enter__(self):
+        self.orig = self.build.load
+        self.main = self.orig()
+        self.build.load = lambda: self
+        return self
+
+    def __exit__(self, *exc):
+        self.build.load = self.orig
 
 
 def in_turns(old, new, reps: int = 20):
@@ -129,114 +176,153 @@ def in_turns(old, new, reps: int = 20):
     return [o1, o2], [n1, n2]
 
 
+def search_agrees(got, want) -> float:
+    """Share of pairs whose found flag and best offset agree; raises on a
+    disagreement that is not a near-tie (chip_smoke.SEARCH_TIE)."""
+    import torch
+    fk, pk, sk, ak = got
+    fp, pp, sp, ap = want
+    agree = (fk == fp) & (pk == pp).all(-1)
+    tie = torch.isclose(sk, sp, rtol=cs.SEARCH_TIE, atol=cs.SEARCH_TIE)
+    if not bool(tie[~agree].all()) or not torch.equal(ak["region_ok"], ap["region_ok"]):
+        raise AssertionError("search disagrees beyond near-ties")
+    return agree.float().mean().item()
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent-csrc", required=True,
-                    help="directory holding the earlier spd.cu, esm.cu, common.cu")
+                    help="directory holding the earlier gather.cu, spd.cu, common.cu")
     ap.add_argument("--build-dir", default=os.path.join(ROOT, "mcptam_tpu_torch", "_build",
                                                         "compare"))
     ap.add_argument("--variants", action="store_true",
-                    help="also time K4 at each panel width and K3 at each block size")
+                    help="also time the search kernel's and K4's global path's variants")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_parent_kernels: needs a CUDA device", file=sys.stderr)
         return 1
     import mcptam_tpu_torch  # noqa: F401  (precision flags)
-    from mcptam_tpu_torch.core.spd import spd_solve_kernel, spd_solve_reference
+    from mcptam_tpu_torch.config import TrackerConfig
     from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.core.spd import spd_solve_kernel, spd_solve_reference
     from mcptam_tpu_torch.csrc._build import CSRC, build, load
-    from mcptam_tpu_torch.io.synthetic import make_rig, render_rig
-    from mcptam_tpu_torch.map.keyframe import make_frame_features
-    from mcptam_tpu_torch.ops.sbi_kernel import esm_align, esm_align_all
+    from mcptam_tpu_torch.io.synthetic import (
+        build_groundtruth_map, make_rig, make_sbi_cams, render_rig,
+    )
+    from mcptam_tpu_torch.ops.gather_kernel import gather_windows, gather_windows_reference
+    from mcptam_tpu_torch.ops.patch import pack_corner_atlas
+    from mcptam_tpu_torch.ops.search_kernel import search_patches, search_patches_reference
+    from mcptam_tpu_torch.system.system import System
 
     card = cs.card_line()
     print(f"card: {card}")
     t0 = time.perf_counter()
-    _, log = build()
+    build()
     load()
-    for line in log.splitlines():
-        if any(k in line for k in ("registers", "Compiling entry", "spill")):
-            print(f"  ptxas: {line.strip()}")
-    libs = {"earlier": read_sources(args.parent_csrc, ("common.cu", "spd.cu", "esm.cu"))}
+    libs = {"earlier": read_sources(args.parent_csrc, ("common.cu", "gather.cu", "spd.cu"))}
     if args.variants:
-        cur = read_sources(str(CSRC), ("common.cu", "spd.cu", "esm.cu"))
-        for pb in PANEL_WIDTHS:
-            text = with_constant(cur["spd.cu"], "PB", pb)
-            if pb < 16:          # the look-ahead takes whole row tiles: RT <= PB
-                text = with_constant(text, "RT", pb)
-            libs[f"pb{pb}"] = {"common.cu": cur["common.cu"], "spd.cu": text}
-        for rt in ROW_TILES:
-            libs[f"rt{rt}"] = {"common.cu": cur["common.cu"],
-                               "spd.cu": with_constant(cur["spd.cu"], "RT", rt)}
-        for nt in ESM_BLOCKS:
-            libs[f"esm{nt}"] = {"common.cu": cur["common.cu"],
-                                "esm.cu": with_constant(cur["esm.cu"], "THREADS", nt)}
+        cur = read_sources(str(CSRC), ("common.cu", "search.cu", "spd.cu"))
+        for nt, yw, xw, mb in SEARCH_VARIANTS:
+            text = with_constant(cur["search.cu"], "THREADS", nt)
+            text = with_constant(with_constant(text, "YW", yw), "XW", xw)
+            text = with_constant(text, "MIN_BLOCKS", mb)
+            libs[f"search_t{nt}_{yw}x{xw}_b{mb}"] = {"common.cu": cur["common.cu"],
+                                                     "search.cu": text}
+        for nt in GLOBAL_THREADS:
+            libs[f"global_t{nt}"] = {"common.cu": cur["common.cu"], "spd.cu": with_constant(
+                cur["spd.cu"], "THREADS_GLOBAL", nt)}
     built = build_libs(libs, args.build_dir)
     old = built["earlier"]
     print(f"build: current and {len(built)} other libraries in {time.perf_counter() - t0:.2f} s")
 
     dev = torch.device("cuda:0")
     gen = torch.Generator().manual_seed(0)
-    out = {"card": card, "spd": {}, "esm": {}, "variants": {}}
+    out = {"card": card, "gather": {}, "spd": {}, "search": {}, "variants": {}}
+
+    # the scene: the benchmark rig, its ground-truth map and a batch of frames
+    cams, cfb = make_rig(cs.C, cs.H, cs.W, spread_deg=25.0, device=dev)
+    ms, feats = build_groundtruth_map(cams, cfb, cs.H, cs.W, n_per_level=cs.N_PER_LEVEL,
+                                      max_points=cs.MAX_POINTS, max_mkfs=cs.MAX_MKFS,
+                                      max_meas=cs.MAX_MEAS)
+    frames = torch.stack([torch.clamp(render_rig(cams, cfb, SE3.exp(torch.tensor(
+        cs.traj_tangent(i), dtype=torch.float32, device=dev)), cs.SEED, cs.H, cs.W),
+        0, 255).to(torch.uint8) for i in range(cs.B)])
+
+    packed = pack_corner_atlas(feats.atlas, feats.corner_atlas)
+    planes = {"float32": packed.reshape(-1, packed.shape[-1]),
+              "uint8": ms.mkfs.atlas.reshape(-1, ms.mkfs.atlas.shape[-1])}
+    for dtype, K, G in (("float32", 1000, 35), ("uint8", 4096, 26)):
+        pl = planes[dtype]
+        rows = torch.randint(0, pl.shape[0] - G + 1, (K,), generator=gen).to(dev)
+        cols = torch.randint(0, pl.shape[1] - G + 1, (K,), generator=gen).to(dev)
+        ref = gather_windows_reference(pl, rows, cols, G)
+        runs = {"current": lambda: gather_windows(pl, rows, cols, G),
+                "earlier": lambda: lib_gather(old, pl, rows, cols, G)}
+        for label, fn in runs.items():
+            if not torch.equal(fn(), ref):
+                raise AssertionError(f"gather {label} K={K} G={G} {dtype} differs")
+        g_old, g_new = in_turns(runs["earlier"], runs["current"])
+        key = f"K={K} G={G} {dtype}"
+        out["gather"][key] = {"earlier_ms": g_old, "ms": g_new,
+                              "plain_ms": cs.time_ms(lambda: gather_windows_reference(
+                                  pl, rows, cols, G))}
+        print(f"K2 gather_windows {key}: {out['gather'][key]} ({card})")
+
     for n in (96, 288):
         A = cs.random_spd(n, gen, dev)
         b = torch.randn(n, 1, generator=gen).to(dev)
         x_ref = spd_solve_reference(A, b)
         solvers = {"current": lambda: spd_solve_kernel(A, b, blocked=True),
                    "earlier": lambda: lib_spd(old, A, b)}
-        if args.variants:
-            solvers.update({v: (lambda lib: lambda: lib_spd(lib, A, b))(built[v])
-                            for v in built if v.startswith(("pb", "rt"))})
         for label, fn in solvers.items():
             x = fn()
             rel = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
             if not rel <= cs.SPD_TOL:
                 raise AssertionError(f"K4 {label} n={n}: relative error {rel}")
         k4_old, k4_new = in_turns(solvers["earlier"], solvers["current"])
-        out["spd"][n] = {
-            "k4_earlier_ms": k4_old, "k4_ms": k4_new,
-            "k5_ms": cs.time_ms(lambda: spd_solve_kernel(A, b, blocked=False)),
-            "linalg_solve_ms": cs.time_ms(lambda: torch.linalg.solve(A, b)),
-            "cholesky_solve_ms": cs.time_ms(
-                lambda: torch.cholesky_solve(b, torch.linalg.cholesky(A))),
-        }
+        out["spd"][n] = {"k4_earlier_ms": k4_old, "k4_ms": k4_new}
         print(f"K4 spd_solve_blocked n={n} m=1: {out['spd'][n]} ({card})")
-        if args.variants:
-            out["variants"][f"spd n={n}"] = {
-                label: cs.time_ms(solvers[label]) for label in solvers
-                if label.startswith(("pb", "rt"))}
-            print(f"K4 panel widths and row tiles n={n}: {out['variants'][f'spd n={n}']} "
-                  f"({card})")
 
-    cams, cfb = make_rig(cs.C, cs.H, cs.W, spread_deg=25.0, device=dev)
-    feats = []
-    for i in (0, 1):
-        pose = SE3.exp(torch.tensor(cs.traj_tangent(i), dtype=torch.float32, device=dev))
-        feats.append(make_frame_features(torch.clamp(
-            render_rig(cams, cfb, pose, cs.SEED, cs.H, cs.W), 0, 255).to(torch.uint8)))
-    pair = (feats[0].sbi, feats[1].sbi, feats[1].sbi_gx, feats[1].sbi_gy)
-    for C, iters in ((cs.C, 9), (1, cs.RELOC_ITERATIONS)):
-        a = tuple(t[:C].contiguous() for t in pair)
-        se2_ref, _ = esm_align(*a, n_iterations=iters)
-        runs = {"current": lambda: esm_align_all(*a, n_iterations=iters),
-                "earlier": lambda: lib_esm(old, a, iters)}
+    rec = System(cams, cfb, make_sbi_cams(cams, cs.H, cs.W), cs.H, cs.W,
+                 tcfg=TrackerConfig(), max_points=cs.MAX_POINTS, max_mkfs=cs.MAX_MKFS,
+                 max_meas=cs.MAX_MEAS, pipeline_depth=2 * cs.B)
+    rec.ms, rec.initialized = ms, True
+    rec.vars["AddingMKFs"] = False
+    calls = cs.record_searches(rec, frames)
+    for R in (TrackerConfig().fine_range_first, -(-TrackerConfig().coarse_range // 4)):
+        a, kw = next(c for c in calls if c[0][6] == R)
+        want = search_patches_reference(*a, **kw)
+        search_agrees(search_patches(*a, **kw), want)
+        s_old, s_new = in_turns(lambda: search_patches_reference(*a, **kw),
+                                lambda: search_patches(*a, **kw))
+        key = f"K={a[2].shape[0]} R={R}"
+        out["search"][key] = {"gather_and_eager_ms": s_old, "fused_ms": s_new}
+        print(f"K2 search {key}: {out['search'][key]} ({card})")
         if args.variants:
-            runs.update({f"esm{nt}": (lambda lib: lambda: lib_esm(lib, a, iters))(
-                built[f"esm{nt}"]) for nt in ESM_BLOCKS})
-        for label, fn in runs.items():
-            err = (fn()[0] - se2_ref).abs().max().item()
-            if not err <= cs.ESM_TOL:
-                raise AssertionError(f"K3 {label} C={C} {iters} iterations: se2 err {err}")
-        k3_old, k3_new = in_turns(runs["earlier"], runs["current"])
-        key = f"C={C} iterations={iters}"
-        out["esm"][key] = {"k3_earlier_ms": k3_old, "k3_ms": k3_new}
-        print(f"K3 esm_align_all {key}: {out['esm'][key]} ({card})")
-        if args.variants:
-            out["variants"][f"esm {key}"] = {
-                label: cs.time_ms(runs[label]) for label in runs if label.startswith("esm")}
-            print(f"K3 block sizes {key}: {out['variants'][f'esm {key}']} ({card})")
+            times = {}
+            for v in (v for v in built if v.startswith("search")):
+                with Swapped(built[v], "mcptam_search_patches"):
+                    frac = search_agrees(search_patches(*a, **kw), want)
+                    times[v] = (cs.time_ms(lambda: search_patches(*a, **kw)), frac)
+            out["variants"][f"search {key}"] = times
+            print(f"K2 search variants {key} (ms, agreement): {times} ({card})")
+
+    if args.variants:
+        for n in GLOBAL_SIZES:
+            A = cs.random_spd(n, gen, dev)
+            b = torch.randn(n, 1, generator=gen).to(dev)
+            x_ref = spd_solve_reference(A, b)
+            times = {}
+            for v in (v for v in built if v.startswith("global")):
+                x = lib_spd_global(built[v], A, b)
+                rel = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                if not rel <= cs.SPD_TOL:
+                    raise AssertionError(f"K4 global {v} n={n}: relative error {rel}")
+                times[v] = cs.time_ms(lambda: lib_spd_global(built[v], A, b), 5)
+            out["variants"][f"spd_global n={n}"] = times
+            print(f"K4 global path block sizes n={n}: {times} ({card})")
     print(json.dumps(out))
     return 0
 

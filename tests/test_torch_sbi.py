@@ -4,6 +4,9 @@
 Tolerance: se2 within 3e-5, the reference's own bar for its ESM kernel
 against the XLA path (config.py, tests/test_sbi_pallas.py): 9
 Gauss-Newton iterations of f32 normal equations summed in another order.
+Templates within 1e-4 grey levels, at the VGA half-sample chain and at
+the two sizes that need the linear resize (480x752, 600x800): the
+half-samples, the resize and the blur sum in another order than XLA's.
 
 The CUDA kernel (csrc/esm.cu) runs only on the card (chip_smoke.py phase
 3); here a numpy emulation of its iteration (each warp's band of rows
@@ -12,17 +15,21 @@ band, a butterfly over the warp's lanes, the warps' partials in order,
 then the 4x4 solve and SE2 update as every warp runs them) is held to the JAX kernel in interpret mode at the tracker's shape
 (C = 4, 9 iterations) and the relocaliser's (C = 1, 12 iterations)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_parity import H, W, C, jax_scene, n, np_get, t
+from _torch_parity import H, W, C, jax_scene, n, np_get, t, traj_tangent
 
 from mcptam_tpu.ops.sbi import esm_align as j_esm, make_sbi as j_make_sbi
 from mcptam_tpu.ops.sbi import sbi_gradients as j_grad, se3_from_se2 as j_lift
 from mcptam_tpu.ops.sbi_pallas import esm_align_all as j_esm_kernel
 from mcptam_tpu_torch import backend, convert
+from mcptam_tpu_torch.core.se3 import SE3
+from mcptam_tpu_torch.io.synthetic import make_rig, render_rig
 from mcptam_tpu_torch.ops.sbi import make_sbi, sbi_gradients, se3_from_se2
 from mcptam_tpu_torch.ops.sbi_kernel import esm_align_all
 
@@ -43,6 +50,45 @@ def test_make_sbi_and_gradients(sbi_pairs):
     np.testing.assert_allclose(n(got), sbi_pairs, rtol=0, atol=1e-4)
     for g, r in zip(sbi_gradients(t(sbi_pairs)), j_grad(jnp.asarray(sbi_pairs))):
         np.testing.assert_allclose(n(g), np.asarray(r), rtol=0, atol=1e-4)
+
+
+@functools.lru_cache(maxsize=4)
+def _rendered(h: int, w: int) -> np.ndarray:
+    """Frames 0 and 1 of the parity trajectory rendered by a 2-camera rig
+    at h x w: (2, 2, h, w) f32."""
+    cams, cfb = make_rig(2, h, w, spread_deg=25.0, device="cpu")
+    return np.stack([n(render_rig(cams, cfb, SE3.exp(t(traj_tangent(i))), 3.0, h, w))
+                     for i in range(2)])
+
+
+# (480, 752) halves to 30x47 and resizes its columns only; (600, 800)
+# stops at 75x100 and resizes both axes
+RESIZED = [(480, 752), (600, 800)]
+
+
+@pytest.mark.parametrize("hw", RESIZED)
+def test_make_sbi_resize_matches_jax(hw):
+    frames = _rendered(*hw)
+    got = make_sbi(t(frames))
+    assert got.shape == frames.shape[:2] + (30, 40)
+    np.testing.assert_allclose(n(got), np.asarray(j_make_sbi(jnp.asarray(frames))),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("hw", RESIZED)
+def test_esm_runs_on_resized_sbis(hw):
+    """One tracker ESM call (9 iterations) between the resized SBIs of two
+    frames: finite, and within SE2_TOL of the JAX ESM on the JAX SBIs."""
+    frames = _rendered(*hw)
+    cur, tgt = n(make_sbi(t(frames[0]))), n(make_sbi(t(frames[1])))
+    gx, gy = (n(g) for g in sbi_gradients(t(tgt)))
+    se2, score = esm_align_all(*map(t, (cur, tgt, gx, gy)), n_iterations=9)
+    assert np.isfinite(n(se2)).all() and np.isfinite(n(score)).all()
+    j_cur, j_tgt = (j_make_sbi(jnp.asarray(f)) for f in frames)
+    j_gx, j_gy = j_grad(j_tgt)
+    se2_ref, _ = jax.vmap(lambda *a: j_esm(*a, n_iterations=9))(j_cur, j_tgt, j_gx, j_gy)
+    np.testing.assert_allclose(n(se2), np.stack([np.asarray(v) for v in se2_ref], -1),
+                               rtol=0, atol=SE2_TOL)
 
 
 @pytest.mark.parametrize("iters", [1, 9])

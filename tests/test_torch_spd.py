@@ -15,7 +15,11 @@ rows, the rows below solved row by row, the trailing update in jobs of
 RT rows x 32 columns with warp 0 taking the next diagonal block's, the
 substitutions by 32-row blocks).  Each checks that
 every step (K5) or panel (K4) updates each trailing entry exactly once;
-K4's also at n = 288, the capacity size, against a float64 solve.
+K4's also at n = 288, the capacity size, against a float64 solve, and
+over the global path's 32 warps at n = 324 and 576, beyond the shared
+range, against a float64 solve and the JAX solve (1e-3, kappa 1e4).  The
+wrappers' routing (shared K4, its global path, K5's range) is checked
+without a card.
 
 Tolerances, relative to max |x|:
   * random SPD (A = G G^T / n + I, kappa ~10): 1e-4, f32 solves that
@@ -37,7 +41,8 @@ from mcptam_tpu.core.spd import _spd_solve_pallas, spd_solve as j_spd_solve
 from mcptam_tpu_torch.ba import bundle as pbundle
 from mcptam_tpu_torch.ba.problems import build
 from mcptam_tpu_torch.core.spd import (
-    K4_PB, MAX_SHARED_BYTES, shared_bytes, spd_solve, spd_solve_reference,
+    K4_GLOBAL_THREADS, K4_PB, MAX_SHARED_BYTES, route, shared_bytes, shared_bytes_global,
+    spd_solve, spd_solve_reference,
 )
 
 
@@ -202,17 +207,17 @@ def _k4_ld(nn):
     return (max(nn - K4_PB, 0) + 3) // 4 * 4 + 32
 
 
-def _k4_jobs(nt):
+def _k4_jobs(nt, warps=K4_WARPS):
     """The trailing-update jobs (column block bk, first row ir0) that each
-    warp of spd_blocked_kernel takes, decoded as the kernel decodes them:
+    of the kernel's warps takes, decoded as the kernel decodes them:
     warp 0 the next diagonal block's (the first PB / RT), the other warps
     the rest in turn."""
     nq, nbk = -(-nt // K4_RT), -(-nt // 32)
     j0 = min(K4_PB // K4_RT, nq)
     jobs = []
-    for warp in range(K4_WARPS):
+    for warp in range(warps):
         bk = first = 0
-        job, step = (0, 1) if warp == 0 else (j0 + warp - 1, K4_WARPS - 1)
+        job, step = (0, 1) if warp == 0 else (j0 + warp - 1, warps - 1)
         while not (warp == 0 and job == j0):
             while bk < nbk and job >= first + nq - 32 * bk // K4_RT:
                 first += nq - 32 * bk // K4_RT
@@ -224,10 +229,12 @@ def _k4_jobs(nt):
     return jobs
 
 
-def _k4_emulate(A, b):
+def _k4_emulate(A, b, warps=K4_WARPS):
     """spd_blocked_kernel's factor and substitutions, thread by thread
     (numpy over lanes, rows and jobs), m = 1, in f32 with fmaf where the
-    kernel has it."""
+    kernel has it.  ``warps``: the kernel's warps (K4_WARPS for the shared
+    path, K4_GLOBAL_THREADS / 32 for spd_blocked_global_kernel, which runs
+    the same schedule on a factor in global memory)."""
     f32 = np.float32
     A = np.asarray(A, f32)
     nn, PB = A.shape[0], K4_PB
@@ -282,7 +289,7 @@ def _k4_emulate(A, b):
         # 3. the trailing update, job by job in the kernel's order
         nt = nn - pe
         touched = np.zeros(L.size, int)
-        for bk, ir0 in _k4_jobs(nt):
+        for bk, ir0 in _k4_jobs(nt, warps):
             kr = 32 * bk + lanes                                  # (32,)
             ir = ir0 + np.arange(K4_RT)                           # (RT,)
             acc = np.zeros((K4_RT, 32), f32)
@@ -370,3 +377,46 @@ def test_shared_memory_range_edge(blocked, edge):
         assert shared_bytes(nn, 1) == 4 * (K4_PB * _k4_ld(nn) + K4_PB * K4_PB + K4_PB
                                            + nn * (nn + 1) // 2 + nn)
     assert shared_bytes(edge, 3, blocked) == shared_bytes(edge, 1, blocked) + 4 * 2 * edge
+
+
+def _spd_kappa(nn: int, seed: int):
+    """Random SPD (nn, nn) with condition number 1e4, as
+    chip_smoke.random_spd builds it, and a (nn, 1) rhs."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((nn, nn)))
+    A = ((Q * np.logspace(0, 4, nn)) @ Q.T).astype(np.float32)
+    return 0.5 * (A + A.T), rng.standard_normal((nn, 1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("nn", [324, 576])
+def test_k4_global_schedule_matches_jax(nn):
+    """K4's global path (spd_blocked_global_kernel: K4's panels over
+    K4_GLOBAL_THREADS / 32 warps, the factor in global memory) beyond the
+    shared range: within SPD_TOL (1e-3) of a float64 solve and of the JAX
+    spd_solve; every panel updates each trailing entry exactly once."""
+    assert route(nn, 1) == "spd_solve_blocked_global"
+    A, B = _spd_kappa(nn, nn)
+    x = _k4_emulate(A, B, warps=K4_GLOBAL_THREADS // 32)
+    x64 = np.linalg.solve(A.astype(np.float64), B.astype(np.float64))
+    assert _rel(x, x64) < 1e-3
+    assert _rel(x, np.asarray(j_spd_solve(jnp.asarray(A), jnp.asarray(B)))) < 1e-3
+
+
+@pytest.mark.parametrize("nn,m,blocked,want", [
+    (96, 1, True, "spd_solve_blocked"), (322, 1, True, "spd_solve_blocked"),
+    (323, 1, True, "spd_solve_blocked_global"), (384, 1, True, "spd_solve_blocked_global"),
+    (1536, 1, True, "spd_solve_blocked_global"), (96, 1, False, "spd_solve_simple"),
+    (339, 1, False, "spd_solve_simple"), (340, 1, False, None), (3385, 1, True, None),
+])
+def test_spd_route(nn, m, blocked, want):
+    """The wrapper's routing: K4 in shared memory up to n = 322, its
+    global path beyond, up to where its panel and rhs fill shared memory;
+    K5 raises beyond n = 339 with a message that names the blocked
+    default."""
+    if want is None:
+        with pytest.raises(ValueError, match="blocked default" if not blocked else "global"):
+            route(nn, m, blocked)
+    else:
+        assert route(nn, m, blocked) == want
+    if want == "spd_solve_blocked_global":
+        assert shared_bytes(nn, m) > MAX_SHARED_BYTES >= shared_bytes_global(nn, m)
