@@ -24,8 +24,12 @@ Phases, each fatal on failure:
      frame, the unaligned gather on 3840 windows of 29 and of 9 pixels,
      some overrunning the plane, the fused patch search on the coarse
      and fine calls of a tracked batch (box sums bit-exact, offsets up to
-     near-ties), and make_sbi with ESM on a 480x752 rig, whose SBI needs
-     the linear resize;
+     near-ties), MiniPatch's fused round trip on every candidate of a
+     frame pair (3840; consecutive trajectory frames and a pair turned
+     apart, candidates moved onto the level borders; bit-exact, timed
+     beside the path it replaced in turns, and its device operations
+     against that path's), and make_sbi with ESM on a 480x752 rig, whose
+     SBI needs the linear resize;
   4. the tracking slice: render the 4-camera 480x640 rig and build the
      ground-truth map on the card, then run System.process_frames over
      the 128-pose benchmark trajectory in batches of 8 with the
@@ -55,8 +59,10 @@ Phases, each fatal on failure:
 
 Each path's launch counts are set to 0 just before it and read just after;
 the FAST front-end must launch once a frame (phase 6 adds the features the
-batch drain computes again for a keyframe add or a relocalisation).  Phase
-6 also records the shapes of every window-gather call it makes.
+batch drain computes again for a keyframe add or a relocalisation), and the
+fused round trip once a keyframe add that went through the candidate
+filter (phase 7).  Phase 6 also records the shapes of every window-gather
+call it makes.
 Prints one JSON line of kernel results, the card line, and last the line
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
 CUDA device is present or any phase fails.
@@ -104,6 +110,16 @@ RESUME_TOL, MASK_BAND = 1e-5, 32
 # loss pose leaves relocalisation to do the recovery
 LIVE_YAW = 0.5
 N_GATHER_WINDOWS = 3840   # 4 cams x (512 + 256 + 128 + 64) candidates
+# MiniPatch's round trip: candidates moved to these distances (level px)
+# from each image edge, inside the template's 4-px margin, the region's
+# 14-px margin and where only the return search's region leaves the image;
+# the second pair's current frame is live_tangent(FAR_POSE), turned
+# ~5 deg and moved 4 cm sideways from trajectory pose 0
+BORDER_DISTANCES = (0, 1, 2, 3, 4, 5, 9, 13, 14, 15, 19, 23, 24, 25)
+FAR_POSE = 4
+# MiniPatch's search: offsets (21 x 21), template terms (9 x 9), and the
+# operations a term (difference, square, sum)
+MINI_OFFSETS, MINI_TERMS, MINI_TERM_OPS = 441, 81, 3
 # the map-maker's largest window gather: an integration's "other" epipolar
 # pass stacks the cameras' 32 strongest candidates of a level
 # (map/mapmaker_core.py::integrate_mkf, cap_per_level) and gathers a 26x26
@@ -147,6 +163,9 @@ KERNELS = {
                     "scripts/test_pallas_halfsample.py:91,98 (K7)"),
     "gather_unaligned": ("mcptam_tpu_torch/csrc/gather_unaligned.cu",
                          "scripts/profile_gather.py:21"),
+    "stability_filter": ("mcptam_tpu_torch/csrc/minipatch.cu",
+                         "scripts/profile_gather.py:21 (K8 on MiniPatch's path, with "
+                         "mcptam_tpu/ops/minipatch.py:79 stability_filter)"),
     "gather_windows": ("mcptam_tpu_torch/csrc/gather.cu",
                        "mcptam_tpu/ops/pallas_gather.py:26"),
     "search_patches": ("mcptam_tpu_torch/csrc/search.cu",
@@ -203,11 +222,13 @@ def bound(n_bytes: float, n_ops: float):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn over reps launches, after one warm-up.  A
-    spin kernel first holds the stream for longer than the host takes to
-    enqueue the reps calls, so that the events time the device's work and
-    not the host's launch rate."""
+def time_ms(fn, reps: int = 20, windows: int = 3) -> float:
+    """Device time of fn, the median over ``windows`` timed windows of the
+    mean over reps launches, after one warm-up.  Before each window a spin
+    kernel holds the stream for longer than the host takes to enqueue the
+    reps calls, so that the events time the device's work and not the
+    host's launch rate; the median drops a window that a host stall left
+    timing the host."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -217,14 +238,17 @@ def time_ms(fn, reps: int = 20) -> float:
     host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # cycles at the H100's 1.98 GHz top SM clock: at a lower clock it spins longer
-    torch.cuda._sleep(int(min(1.5 * reps * host_s + 1e-3, 2.0) * 1.98e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        # cycles at the H100's 1.98 GHz top SM clock: at a lower clock it spins longer
+        torch.cuda._sleep(int(min(1.5 * reps * host_s + 1e-3, 2.0) * 1.98e9))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
 
 
 def check_fast(images):
@@ -391,6 +415,139 @@ def check_gather_unaligned(feats, gen):
     plain_ms = time_ms(lambda: gather_unaligned_reference(plane, rows, cols, 29))
     bnd = bound(K * 29 * 29 * 4 * 2 + K * 2 * 4, 0)
     return 0.0, ms, plain_ms, bnd, None
+
+
+def at_borders(feats):
+    """feats with the first candidates of every camera and level moved to
+    BORDER_DISTANCES from each of the four image edges and made valid."""
+    import dataclasses
+    import torch
+
+    xy, valid = [], []
+    for l, (cxy, cv) in enumerate(zip(feats.cand_xy, feats.cand_valid)):
+        h, w = H >> l, W >> l
+        pts = [p for d in BORDER_DISTANCES
+               for p in ((d, h // 2), (w - 1 - d, h // 3), (w // 3, d), (w // 2, h - 1 - d))]
+        pts = torch.tensor(pts[:cxy.shape[1]], dtype=cxy.dtype, device=cxy.device)
+        cxy, cv = cxy.clone(), cv.clone()
+        cxy[:, :len(pts)] = pts
+        cv[:, :len(pts)] = True
+        xy.append(cxy)
+        valid.append(cv)
+    return dataclasses.replace(feats, cand_xy=tuple(xy), cand_valid=tuple(valid))
+
+
+def stability_args(prev, cur) -> tuple:
+    """The round trip's arguments for every candidate of a FrameFeatures
+    pair, laid out as filter_frame_candidates lays them out: the two
+    (C*H, AW) atlas planes, the descriptors, xy and validity."""
+    import torch
+    from mcptam_tpu_torch.ops.minipatch_kernel import level_descriptors
+
+    C_, H_, AW = cur.atlas.shape
+    sizes = tuple(v.shape[1] for v in cur.cand_valid)
+    return (prev.atlas.reshape(C_ * H_, AW), cur.atlas.reshape(C_ * H_, AW),
+            level_descriptors(C_, H_, AW, sizes, cur.atlas.device),
+            torch.cat([x.reshape(-1, 2) for x in cur.cand_xy]),
+            torch.cat([v.reshape(-1) for v in cur.cand_valid]))
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, sets) of one call of fn, from a
+    torch.profiler window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+
+
+def check_stability(cams, cfb, frames):
+    """MiniPatch's fused round trip (csrc/minipatch.cu) against
+    stability_reference on every candidate of a frame pair at the live
+    path's width (4 cameras x 960): consecutive trajectory frames, and
+    trajectory pose 0 against live_tangent(FAR_POSE), both with candidates
+    moved onto the level borders.  kept, ran, and where a search ran its
+    found flag, position and SSD: bit-exact.  Timed on the consecutive pair
+    beside the plain version and, in turns, the path it replaced (K8's
+    kernel for every window, the eager search); then the device operations
+    of one filter_frame_candidates call on either path."""
+    import torch
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import render_rig
+    from mcptam_tpu_torch.map.keyframe import make_frame_features
+    from mcptam_tpu_torch.ops import minipatch
+    from mcptam_tpu_torch.ops.gather_unaligned_kernel import gather_unaligned
+    from mcptam_tpu_torch.ops.minipatch_kernel import stability_reference, stability_search
+
+    far = torch.clamp(render_rig(cams, cfb, SE3.exp(torch.tensor(
+        live_tangent(FAR_POSE), dtype=torch.float32, device=cfb.t.device)), SEED, H, W),
+        0, 255).to(torch.uint8)
+    f0 = make_frame_features(frames[0])
+    pairs = {"consecutive": (f0, at_borders(make_frame_features(frames[1]))),
+             f"pose 0 -> live_tangent({FAR_POSE})": (f0, at_borders(make_frame_features(far)))}
+
+    def parent(*a):
+        return stability_reference(*a, gather=gather_unaligned)
+
+    for label, (prev, cur) in pairs.items():
+        args = stability_args(prev, cur)
+        got, want = stability_search(*args), stability_reference(*args)
+        torch.cuda.synchronize()
+        ran = got.ran
+        same = {"kept": torch.equal(got.kept, want.kept), "ran": torch.equal(ran, want.ran),
+                "found": torch.equal(got.found[ran], want.found[ran]),
+                "xy": torch.equal(got.xy[ran], want.xy[ran]),
+                "ssd": torch.equal(got.ssd[ran], want.ssd[ran])}
+        valid = args[4]
+        n_kept, n_valid = int(got.kept.sum()), int(valid.sum())
+        print(f"  stability_filter {label}: K={valid.shape[0]}, {n_valid} valid, "
+              f"{int(ran[1].sum())} return searches ({int((ran[1] & ~got.kept).sum())} "
+              f"pruned by them), {int((~ran[1] & valid).sum())} skipped, {n_kept} kept; "
+              f"equal {same}")
+        if not all(same.values()):
+            raise AssertionError(f"stability_filter {label} differs from its plain version: {same}")
+        if valid.shape[0] != N_GATHER_WINDOWS or n_kept == 0 or (
+                label != "consecutive" and n_kept == n_valid):
+            raise AssertionError(f"stability_filter {label}: {n_kept} of {n_valid} kept")
+    args = stability_args(*pairs["consecutive"])
+    got = stability_search(*args)
+    ms = time_ms(lambda: stability_search(*args))
+    plain_ms = time_ms(lambda: stability_reference(*args))
+    p1 = time_ms(lambda: parent(*args))
+    k1 = time_ms(lambda: stability_search(*args))
+    k2 = time_ms(lambda: stability_search(*args))
+    p2 = time_ms(lambda: parent(*args))
+    # the two planes in, the candidates in (desc, xy, valid), the results
+    # out; the SSD terms of the searches this data needs
+    K = args[4].shape[0]
+    n_bytes = 2 * args[0].numel() * 4 + K * (16 + 8 + 1) + K * (1 + 2 + 2 + 16 + 8)
+    per_search = MINI_OFFSETS * MINI_TERMS * MINI_TERM_OPS
+    n_searches = int(got.ran.sum())
+    b_ms, b_by = bound(n_bytes, n_searches * per_search)
+    full_ms, full_by = bound(n_bytes, 2 * K * per_search)
+    prev, cur = pairs["consecutive"]
+    minipatch.filter_frame_candidates(prev, cur)            # warm
+    ops_fused = device_ops(lambda: minipatch.filter_frame_candidates(prev, cur))
+    fused = minipatch.stability_search
+    minipatch.stability_search = parent
+    try:
+        ops_parent = device_ops(lambda: minipatch.filter_frame_candidates(prev, cur))
+    finally:
+        minipatch.stability_search = fused
+    row = {"K": K, "searches": n_searches, "ms": ms, "plain_ms": plain_ms,
+           "parent_ms": [p1, p2], "in_turns_ms": [k1, k2], "bound_ms": b_ms, "bound_by": b_by,
+           "bound_all_searches_ms": full_ms, "library_ms": None,
+           "device_ops_per_filter": {"fused": ops_fused, "parent": ops_parent}}
+    print(f"  stability_filter K={K}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, parent path "
+          f"(K8 + eager search) {p1:.4f} / {p2:.4f} ms against the kernel {k1:.4f} / {k2:.4f} "
+          f"in turns; bound {b_ms:.6f} ms ({b_by}, {n_searches} searches; "
+          f"{full_ms:.6f} ms with all {2 * K}); device ops a filter_frame_candidates call: "
+          f"{ops_fused} fused, {ops_parent} on the parent path")
+    return (0.0, ms, plain_ms, (b_ms, b_by), None), [row]
 
 
 def lm_problem(dev, noise=0.3):
@@ -606,16 +763,7 @@ def check_search(calls):
 def device_ops_per_frame(sys_, batch) -> float:
     """Device operations (kernels, copies, sets) a frame of one
     process_frames batch, from a torch.profiler window."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sys_.process_frames(batch)
-        sys_.flush_pipeline()
-        torch.cuda.synchronize()
-    on_dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    return sum(e.count for e in on_dev) / batch.shape[0]
+    return device_ops(lambda: (sys_.process_frames(batch), sys_.flush_pipeline())) / batch.shape[0]
 
 
 def check_sbi_resize(dev):
@@ -974,6 +1122,7 @@ def phase_live(cams, cfb, cams_sbi, frames, poses, card):
     from mcptam_tpu_torch.io.synthetic import render_rig
     from mcptam_tpu_torch.map.state import clone_tree
     from mcptam_tpu_torch.system.evaluate import ate_rmse
+    from mcptam_tpu_torch.system import system as system_mod
     from mcptam_tpu_torch.system.mapio import MAP_LEAVES
     from mcptam_tpu_torch.system.system import System
 
@@ -1002,6 +1151,15 @@ def phase_live(cams, cfb, cams_sbi, frames, poses, card):
     panel = torch.as_tensor(panel_frame(), device=dev)
     sys_ = new_system()
     torch.cuda.synchronize()
+    # keyframe adds that go through the candidate filter: it wraps the name
+    # the drain calls, so the kernel's own launch count is untouched
+    filtered, filt = [], system_mod.filter_frame_candidates
+
+    def counted_filter(*a, **k):
+        filtered.append(1)
+        return filt(*a, **k)
+
+    system_mod.filter_frame_candidates = counted_filter
 
     backend.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1041,6 +1199,7 @@ def phase_live(cams, cfb, cams_sbi, frames, poses, card):
     dt = time.perf_counter() - t0
     n_frames = n_walk_frames + lost_at + N_RETURN
     launches = backend.kernel_report()
+    system_mod.filter_frame_candidates = filt
 
     if reloc_at is None:
         raise AssertionError("live: no frame relocalised after the loss")
@@ -1059,7 +1218,8 @@ def phase_live(cams, cfb, cams_sbi, frames, poses, card):
           f"relocalised on return frame {reloc_at}; {len(infos)} frames outside the "
           f"lost stretch: mean_found {mean_found:.1f}, ATE {ate:.3e} m; map "
           f"{infos[-1].n_mkfs} MKFs / {infos[-1].n_points} points; candidates in "
-          f"the masked band {band}; launches {launches}")
+          f"the masked band {band}; {len(filtered)} keyframe adds through the candidate "
+          f"filter; launches {launches}")
     if band:
         raise AssertionError(f"live: {band} candidates inside the static mask")
     if n_added < 1:
@@ -1068,9 +1228,14 @@ def phase_live(cams, cfb, cams_sbi, frames, poses, card):
         raise AssertionError(f"live gates failed: mean_found {mean_found} (>= {MIN_FOUND}), "
                              f"ATE {ate} (< {MAX_ATE})")
     for k in ("fast_frontend", "gather_windows", "search_patches", "esm_align_all",
-              "half_sample", "gather_unaligned"):
+              "half_sample", "stability_filter"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the live path")
+    # the fused round trip once a filtered add; K8's gather no longer on the path
+    if launches["stability_filter"] != len(filtered) or launches["gather_unaligned"]:
+        raise AssertionError(f"live: stability_filter launched {launches['stability_filter']} "
+                             f"times for {len(filtered)} filtered keyframe adds, "
+                             f"gather_unaligned {launches['gather_unaligned']} times")
     if launches["fast_frontend"] != n_frames:      # K1 once a frame
         raise AssertionError(f"live: fast_frontend launched {launches['fast_frontend']} "
                              f"times for {n_frames} frames")
@@ -1206,6 +1371,7 @@ def main() -> int:
     rec.vars["AddingMKFs"] = False
     results["search_patches"], sizes["search_patches"] = check_search(
         record_searches(rec, torch.stack(frames[:B])))
+    results["stability_filter"], sizes["stability_filter"] = check_stability(cams, cfb, frames)
     check_sbi_resize(dev)
     for k, (err, ms_k, ms_p, (b_ms, b_by), lib_ms) in results.items():
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"

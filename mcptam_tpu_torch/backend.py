@@ -20,6 +20,7 @@ LAUNCHES = {
     "spd_solve_simple": 0,   # core/spd.py, csrc/spd.cu (K5)
     "half_sample": 0,        # ops/halfsample_kernel.py, csrc/halfsample.cu (K6/K7)
     "gather_unaligned": 0,   # ops/gather_unaligned_kernel.py, csrc/gather_unaligned.cu (K8)
+    "stability_filter": 0,   # ops/minipatch_kernel.py, csrc/minipatch.cu (K8 with MiniPatch's search)
 }
 
 

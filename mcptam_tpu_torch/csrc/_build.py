@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parent / "_build"
 SOURCES = ("common.cu", "fast.cu", "gather.cu", "esm.cu", "spd.cu",
-           "halfsample.cu", "gather_unaligned.cu", "search.cu")
+           "halfsample.cu", "gather_unaligned.cu", "search.cu", "minipatch.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +42,7 @@ ENTRY_POINTS = {
     "mcptam_half_sample": [_P] * 2 + [_I] * 3 + [_P],
     "mcptam_gather_unaligned": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_search_patches": [_P] * 9 + [_I, _P, _F, _F] + [_I] * 4 + [_P] * 9,
+    "mcptam_stability_search": [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P] * 6,
 }
 
 _lock = threading.Lock()

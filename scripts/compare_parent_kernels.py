@@ -17,14 +17,18 @@ search is timed on the coarse and fine calls of a tracked batch: the
 fused kernel (csrc/search.cu) against the earlier path, the window
 gather followed by the eager search (``search_patches_reference``).
 Times are CUDA-event device times (chip_smoke.time_ms) taken in turns
-(earlier, current, current, earlier).
+(earlier, current, current, earlier); chip_smoke.py itself times
+MiniPatch's round trip against the path it replaced.
 
 ``--variants`` also builds the current sources with the search kernel's
 block size ``THREADS``, offset tile ``YW`` x ``XW`` and ``MIN_BLOCKS``
 (the blocks an SM must hold, which caps its registers) set to other
-values, and K4's global path at ``THREADS_GLOBAL`` 512 and 1024, checks
-each the same way as chip_smoke.py and times each, so that the choice in
-the sources is a measured one.  Prints the card and its power limit, and
+values, K4's global path at ``THREADS_GLOBAL`` 512 and 1024, and the
+round trip (csrc/minipatch.cu, on chip_smoke's consecutive frame pair)
+with ``WARPS`` (candidates a block) and ``SEG`` (offsets of a row a lane
+takes at once) set to other values, checks each the same way as
+chip_smoke.py and times each, so that the choice in the sources is a
+measured one.  Prints the card and its power limit, and
 one JSON line of the times.
 """
 
@@ -47,6 +51,8 @@ SEARCH_VARIANTS = ((128, 3, 2, 8), (128, 3, 3, 8), (128, 2, 2, 8), (64, 3, 3, 16
                    (256, 2, 2, 4), (128, 3, 2, 4))
 GLOBAL_THREADS = (512, 1024)
 GLOBAL_SIZES = (384, 1536)
+# (WARPS, SEG) of the round-trip kernel
+MINIPATCH_VARIANTS = ((8, 7), (4, 7), (1, 7), (8, 3))
 
 
 def build_libs(libs: dict, out_dir: str) -> dict:
@@ -189,6 +195,16 @@ def search_agrees(got, want) -> float:
     return agree.float().mean().item()
 
 
+def stability_agrees(got, want) -> None:
+    """Raises unless the round trip is bit-exact where the kernel ran."""
+    import torch
+    ran = got.ran
+    if not (torch.equal(got.kept, want.kept) and torch.equal(ran, want.ran)
+            and all(torch.equal(getattr(got, f)[ran], getattr(want, f)[ran])
+                    for f in ("found", "xy", "ssd"))):
+        raise AssertionError("stability_filter differs from its plain version")
+
+
 def main() -> int:
     import torch
 
@@ -211,7 +227,9 @@ def main() -> int:
     from mcptam_tpu_torch.io.synthetic import (
         build_groundtruth_map, make_rig, make_sbi_cams, render_rig,
     )
+    from mcptam_tpu_torch.map.keyframe import make_frame_features
     from mcptam_tpu_torch.ops.gather_kernel import gather_windows, gather_windows_reference
+    from mcptam_tpu_torch.ops.minipatch_kernel import stability_reference, stability_search
     from mcptam_tpu_torch.ops.patch import pack_corner_atlas
     from mcptam_tpu_torch.ops.search_kernel import search_patches, search_patches_reference
     from mcptam_tpu_torch.system.system import System
@@ -233,6 +251,11 @@ def main() -> int:
         for nt in GLOBAL_THREADS:
             libs[f"global_t{nt}"] = {"common.cu": cur["common.cu"], "spd.cu": with_constant(
                 cur["spd.cu"], "THREADS_GLOBAL", nt)}
+        mp = read_sources(str(CSRC), ("minipatch.cu",))["minipatch.cu"]
+        for warps, seg in MINIPATCH_VARIANTS:
+            libs[f"minipatch_w{warps}_s{seg}"] = {"common.cu": cur["common.cu"], "minipatch.cu":
+                                                  with_constant(with_constant(mp, "WARPS", warps),
+                                                                "SEG", seg)}
     built = build_libs(libs, args.build_dir)
     old = built["earlier"]
     print(f"build: current and {len(built)} other libraries in {time.perf_counter() - t0:.2f} s")
@@ -310,6 +333,17 @@ def main() -> int:
             print(f"K2 search variants {key} (ms, agreement): {times} ({card})")
 
     if args.variants:
+        # MiniPatch's round trip on chip_smoke's consecutive pair
+        st = cs.stability_args(make_frame_features(frames[0]),
+                               cs.at_borders(make_frame_features(frames[1])))
+        want = stability_reference(*st)
+        times = {}
+        for v in (v for v in built if v.startswith("minipatch")):
+            with Swapped(built[v], "mcptam_stability_search"):
+                stability_agrees(stability_search(*st), want)
+                times[v] = cs.time_ms(lambda: stability_search(*st))
+        out["variants"]["stability_filter"] = times
+        print(f"K8 stability_filter variants (ms): {times} ({card})")
         for n in GLOBAL_SIZES:
             A = cs.random_spd(n, gen, dev)
             b = torch.randn(n, 1, generator=gen).to(dev)
