@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tracking, mapping and live paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's tracking, mapping and live paths and its
+`mcptam` app once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -55,7 +55,19 @@ Phases, each fatal on failure:
      track on quadrant-panel frames, relocalises when it returns to
      trajectory pose 0 and tracks on; gates mean_found and ATE over the frames outside the lost stretch;
      then the map is saved and loaded into a second System, and both track
-     the next 8 frames to the same poses.
+     the next 8 frames to the same poses;
+  8. the app: phase 7's 24 warm-up frames written as a PGM dataset
+     directory with its rig document (masks included) and ground truth,
+     then `python -m mcptam_tpu_torch.apps.mcptam` run in-process on the
+     card, once frame by frame (process_frame) and once with --batch 8
+     --pipeline 2 (process_frames), both through the native frame queue:
+     every frame reported once and in order, none lost, ATE, an MKF added,
+     the map, PLY and keyframe overlays written, every kernel of the live
+     path launched; then on the first run's System profile_frame's stage
+     table, small_image, align_to_dominant_plane on the tracked map and
+     on it pressed flat (camera-frame coordinates kept either way; the
+     flat map aligned) and plane_align_transform on tests/test_align.py's
+     planar cloud.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the FAST front-end must launch once a frame (phase 6 adds the features the
@@ -104,6 +116,11 @@ LM_COST_TOL = 1e-2  # K5 vs K4 final LM cost: the accept path may differ by f32 
 # round trip, their pose tolerance, and the static mask's bottom band
 N_LIVE_WALK, N_PANEL_MAX, N_RETURN, N_RESUME = 24, 8, 16, 8
 RESUME_TOL, MASK_BAND = 1e-5, 32
+# the app phase: profile_frame's frames (one warm-up), the relative change
+# of camera-frame point coordinates the plane alignment may make (float32
+# transforms of coordinates ~1-10 m), and the aligned planar cloud's |z|
+N_PROFILE, ALIGN_TOL, PLANE_Z_TOL = 5, 1e-4, 0.01
+N_PLANE = 80       # tests/test_align.py's planar cloud: its points on the plane
 # the live warm-up also turns the rig in yaw, by up to LIVE_YAW rad: the
 # tracker's coarse search (30 px at level 0, ~10 deg) recovers a sideways
 # offset of 0.22 m on the first frame back by itself, so only a turned
@@ -1278,6 +1295,224 @@ def phase_live(cams, cfb, cams_sbi, frames, poses, card):
     return launches
 
 
+def app_inputs(root, cams, cfb):
+    """Phase 8's inputs under ``root``: phase 7's 24 warm-up frames as a PGM
+    dataset directory (timestamps.txt a camera) carrying the rig document
+    (save_rig, at full width, with phase 7's bottom mask band as
+    masks/cameraN.npy), and the ground truth as (T,6) ln vectors.  Returns
+    (dataset dir, ground-truth file)."""
+    import torch
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.dataset import export_sequence_dir
+    from mcptam_tpu_torch.io.rig_config import save_rig
+    from mcptam_tpu_torch.io.synthetic import DEFAULT_PARAMS, render_rig
+
+    dev = cfb.t.device
+    tangents = np.array([live_tangent(i) for i in range(N_LIVE_WALK)], np.float32)
+    frames = np.stack([torch.clamp(render_rig(
+        cams, cfb, SE3.exp(torch.as_tensor(v, device=dev)), SEED, H, W), 0, 255
+    ).to(torch.uint8).cpu().numpy() for v in tangents], axis=1)       # (C,T,H,W)
+    data = os.path.join(root, "dataset")
+    export_sequence_dir(data, frames)
+    os.makedirs(os.path.join(data, "masks"))
+    mask = np.ones((H, W), bool)
+    mask[H - MASK_BAND:, :] = False
+    names = [f"camera{c + 1}" for c in range(C)]
+    for name in names:
+        np.save(os.path.join(data, "masks", f"{name}.npy"), mask)
+    # make_rig's intrinsics (io/synthetic.py)
+    params = DEFAULT_PARAMS.copy()
+    params[4], params[5], params[0] = W / 2.0 + 2.0, H / 2.0 + 3.0, 0.28 * W
+    save_rig(os.path.join(data, "rig.json"), [params] * C, (W, H), cam_from_base=cfb,
+             names=names, masks_rel=[f"masks/{n}.npy" for n in names])
+    gt = os.path.join(root, "gt.npy")
+    np.save(gt, tangents)
+    return data, gt
+
+
+def run_app(argv, label, card):
+    """Run the mcptam app in-process, its output echoed; gate it as a user
+    would read it: every frame reported once, in order, none lost, ATE
+    under MAX_ATE, an MKF added after bootstrap, the map file, a PLY vertex
+    a live point and a valid MKF, an overlay a valid (MKF, camera), and
+    every kernel of the live path launched.  Returns (system, infos,
+    launch counts)."""
+    import contextlib
+    import io
+    import torch
+    from mcptam_tpu_torch import backend
+    from mcptam_tpu_torch.apps import mcptam as app
+    from mcptam_tpu_torch.apps._common import load_gt_poses
+    from mcptam_tpu_torch.system.evaluate import evaluate_run
+
+    args = app.parse_args(argv)
+    out = io.StringIO()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            system, infos = app.run(args)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout.write(out.getvalue())
+    dt = time.perf_counter() - t0
+    launches = backend.kernel_report()
+    text = out.getvalue()
+
+    reported = [int(ln.split()[1]) for ln in text.splitlines() if ln.startswith("frame ")]
+    ids = [i.frame_id for i in infos]
+    if reported != list(range(N_LIVE_WALK)) or ids != reported:
+        raise AssertionError(f"app {label}: frames reported {reported}, infos {ids}")
+    scores = evaluate_run(infos, load_gt_poses(args.eval_gt))
+    ms = system.ms
+    n_live = int((ms.points.valid & ~ms.points.bad).sum())
+    n_mkfs = int(ms.mkfs.valid.sum())
+    n_kf = int(ms.mkfs.kf_valid[ms.mkfs.valid].sum())
+    with open(args.export_ply) as f:
+        n_vertex = next(int(ln.split()[-1]) for ln in f if ln.startswith("element vertex"))
+    n_overlays = len([f for f in os.listdir(args.dump_kfs) if f.endswith(".ppm")])
+    n_added = sum(i.added_mkf for i in infos)
+    mm = system.mapmaker
+    ba_runs = len(mm.ba_log)          # finished; one may still be running
+    ba_ran = bool(ba_runs) or mm._ba_kind != "none"
+    print(f"app {label}: {len(infos)} frames in {dt:.2f} s ({len(infos) / dt:.2f} frames/s, "
+          f"rig and dataset load, replay, map-maker flush and outputs included) on {card}; "
+          f"lost {scores['lost_frames']}, ATE {scores['ate']['rmse']:.3e} m, RPE "
+          f"{scores['rpe']['trans_rmse']:.3e} m / {scores['rpe']['rot_rmse_deg']:.3e} deg; "
+          f"{n_added} MKFs added, map {n_mkfs} MKFs / {n_live} live points, PLY "
+          f"{n_vertex} vertices, {n_overlays} overlays, {ba_runs} BAs finished, "
+          f"one running at the end: {mm._ba_kind != 'none'}; "
+          f"launches {launches}")
+    if scores["lost_frames"] or not scores["ate"]["rmse"] < MAX_ATE:
+        raise AssertionError(f"app {label}: lost {scores['lost_frames']}, "
+                             f"ATE {scores['ate']['rmse']} (< {MAX_ATE})")
+    if n_added < 1:
+        raise AssertionError(f"app {label}: no MKF added after the bootstrap")
+    if not os.path.exists(args.out_map):
+        raise AssertionError(f"app {label}: no map file at {args.out_map}")
+    if n_vertex != n_live + n_mkfs or n_overlays != n_kf:
+        raise AssertionError(f"app {label}: PLY {n_vertex} vertices for {n_live} points + "
+                             f"{n_mkfs} MKFs, {n_overlays} overlays for {n_kf} keyframes")
+    must = ["fast_frontend", "search_patches", "esm_align_all", "half_sample",
+            "gather_windows", "stability_filter"] + (["spd_solve_blocked"] if ba_ran else [])
+    for k in must:
+        if launches[k] <= 0:
+            raise AssertionError(f"app {label}: kernel {k} never launched")
+    return system, infos, launches
+
+
+def phase_app(cams, cfb, card):
+    """Phase 8.  Returns the launch counts of the two app runs."""
+    import tempfile
+    import torch
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import render_rig
+    from mcptam_tpu_torch.map.align import dominant_plane, plane_align_transform
+    from mcptam_tpu_torch.map.state import kf_cam_from_world
+
+    dev = cfb.t.device
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as root:
+        data, gt = app_inputs(root, cams, cfb)
+        total = {}
+        for label, extra in (("A", []), ("B", ["--batch", str(B), "--pipeline", "2"])):
+            d = os.path.join(root, label)
+            argv = ["--video", data, "--eval-gt", gt, "--out-map", f"{d}_map.npz",
+                    "--export-ply", f"{d}.ply", "--dump-kfs", f"{d}_kfs", "--fps", "1000",
+                    *extra]
+            system, _, launches = run_app(argv, label, card)
+            if label == "A":
+                sys_a = system
+                if launches["fast_frontend"] != N_LIVE_WALK:   # K1 once a frame
+                    raise AssertionError(f"app A: fast_frontend launched "
+                                         f"{launches['fast_frontend']} times for "
+                                         f"{N_LIVE_WALK} frames")
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+
+    # profile_frame on the next frames of the walk: each stage timed to a
+    # device synchronise; the first frame warms up, the rest are averaged
+    stages = ("kf_downsample", "sbi", "motion", "pvs", "coarse", "fine", "pose",
+              "depth", "add")
+    rows = []
+    for i in range(N_LIVE_WALK, N_LIVE_WALK + N_PROFILE):
+        pose = SE3.exp(torch.tensor(live_tangent(i), dtype=torch.float32, device=dev))
+        img = torch.clamp(render_rig(cams, cfb, pose, SEED, H, W), 0, 255).to(torch.uint8)
+        rows.append(sys_a.profile_frame(img))
+    for r in rows:
+        if not all(getattr(r, s) > 0 for s in stages):
+            raise AssertionError(f"app: profile_frame stage at 0: {r}")
+    mean = {s: 1e3 * float(np.mean([getattr(r, s) for r in rows[1:]])) for s in stages}
+    total_ms = sum(mean.values())
+    print(f"app profile_frame, mean of {N_PROFILE - 1} frames after one warm-up (ms, share) "
+          f"on {card}: " + ", ".join(f"{s} {mean[s]:.3f} ({mean[s] / total_ms:.1%})"
+                                      for s in stages) + f"; total {total_ms:.3f}")
+
+    img = sys_a.small_image()
+    want = (((C + 1) // 2) * H, 2 * W, 3)
+    if img is None or img.shape != want or img.dtype != np.uint8:
+        raise AssertionError(f"app: small_image {None if img is None else img.shape}, "
+                             f"want {want}")
+
+    # the dominant plane: points and poses move together, so every live
+    # point's coordinates in every valid MKF camera stay as they were
+    def cam_coords(ms):
+        live = ms.points.valid & ~ms.points.bad
+        kcw = kf_cam_from_world(ms)
+        x = torch.einsum("mcij,nj->mcni", kcw.R, ms.points.pos_w[live]) + kcw.t[:, :, None]
+        return x[ms.mkfs.kf_valid].reshape(-1, 3)
+
+    # the map as tracked (its points lie on the textured sphere), then with
+    # its live points pressed onto the plane y = 0.3, where a plane is found
+    for flat in (False, True):
+        if flat:
+            live = sys_a.ms.points.valid & ~sys_a.ms.points.bad
+            sys_a.ms.points.pos_w[live, 1] = 0.3
+        before = cam_coords(sys_a.ms)
+        ok = sys_a.align_to_dominant_plane()
+        after = cam_coords(sys_a.ms)
+        rel = float((torch.linalg.vector_norm(after - before, dim=-1)
+                     / torch.linalg.vector_norm(before, dim=-1)).max())
+        print(f"app: plane alignment of the {'flattened' if flat else 'tracked'} map "
+              f"{'done' if ok else 'failed'}; {before.shape[0]} (point, keyframe camera) "
+              f"coordinates within {rel:.3e} relative")
+        if not rel <= ALIGN_TOL or (flat and not ok):
+            raise AssertionError(f"app: alignment ({'done' if ok else 'failed'}) moved "
+                                 f"camera-frame coordinates by {rel}")
+
+    # tests/test_align.py's planar cloud (rng 42) on the card: its 80 plane
+    # points end at z = 0 (RANSAC's inliers may add an outlier within 0.1)
+    pts, valid = planar_cloud(np.random.default_rng(42))
+    pts, valid = torch.as_tensor(pts, device=dev), torch.as_tensor(valid, device=dev)
+    gen = torch.Generator(device=dev)
+    _, _, inlier, _ = dominant_plane(pts, valid, gen.manual_seed(1))
+    T, ok = plane_align_transform(pts, valid, gen.manual_seed(1))
+    z = float(torch.abs(T.apply(pts)[:N_PLANE, 2]).max())
+    print(f"app: plane_align_transform on the planar cloud: ok {bool(ok)}, "
+          f"{int(inlier[:N_PLANE].sum())} of its {N_PLANE} plane points among "
+          f"{int(inlier.sum())} inliers, their max |z| {z:.3e}")
+    if not bool(ok) or not bool(inlier[:N_PLANE].all()) or not z < PLANE_Z_TOL:
+        raise AssertionError(f"app: planar cloud not aligned: ok {bool(ok)}, max |z| {z}")
+    return total
+
+
+def planar_cloud(rng, n_plane=N_PLANE, n_out=20, N=128):
+    """tests/test_align.py's tilted plane with outliers, padded to N slots."""
+    n = np.array([0.2, -0.3, 0.93])
+    n /= np.linalg.norm(n)
+    c = np.array([0.5, -0.2, 2.0])
+    u = np.cross(n, [1.0, 0, 0])
+    u /= np.linalg.norm(u)
+    v = np.cross(n, u)
+    a = rng.normal(size=(n_plane, 2))
+    pts = np.zeros((N, 3), np.float32)
+    pts[:n_plane] = c + a[:, :1] * u + a[:, 1:] * v + rng.normal(size=(n_plane, 3)) * 0.002
+    pts[n_plane:n_plane + n_out] = c + rng.normal(size=(n_out, 3)) * 2.0
+    valid = np.zeros(N, bool)
+    valid[:n_plane + n_out] = True
+    return pts, valid
+
+
 def pose_errors(infos, poses):
     """Per-frame pose error (rotation angle (+) translation), as the
     benchmark's max_pose_err; frame i maps to trajectory pose i % N_POSES."""
@@ -1455,13 +1690,16 @@ def main() -> int:
 
     # ---- 7. live: process_frame from an empty map
     launches_live = phase_live(cams, cfb, cams_sbi, frames, poses, card)
+
+    # ---- 8. the mcptam app on a dataset directory, through the native queue
+    launches_app = phase_app(cams, cfb, card)
     launches = dict(launches_live)
     # BA's kernels are read from their own paths: K4 from mapping, K5 and
     # K4's global path from LM
     launches["spd_solve_blocked"] = launches_map["spd_solve_blocked"]
     launches.update(launches_lm)
     by_phase = {"tracking": launches_track, "lm": launches_lm,
-                "mapping": launches_map, "live": launches_live}
+                "mapping": launches_map, "live": launches_live, "app": launches_app}
 
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -1,0 +1,10 @@
+"""Executable entry points of the port, the analogues of the reference's
+binaries (CMakeLists.txt:59-105):
+
+  python -m mcptam_tpu_torch.apps.mcptam   (standalone tracker and mapper)
+
+Headless and file-driven: rig configs are JSON (io/rig_config.py), video is
+a (C,T,H,W) uint8 .npy/.npz or a dataset directory (io/dataset.py),
+replayed through the native synchronised frame queue.  The apps run on the
+GPU unless ``--device cpu`` is given.
+"""

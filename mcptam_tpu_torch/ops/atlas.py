@@ -27,6 +27,11 @@ def atlas_width(W: int) -> int:
     return atlas_xoff(W)[-1] + (W >> (LEVELS - 1))
 
 
+def level_dims(H: int, W: int, level: int) -> tuple:
+    """(height, width) of pyramid level ``level`` of an H x W image."""
+    return (H >> level, W >> level)
+
+
 def build_atlas(pyramid) -> torch.Tensor:
     """Pack pyramid levels (level 0 first, each (...,H_l,W_l)) into one
     (...,H, atlas_width) tensor."""

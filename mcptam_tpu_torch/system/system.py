@@ -20,8 +20,11 @@ run when a frame drains.  Static masks and glare masking exclude image
 regions from the features; ``save``/``load`` checkpoint the session in the
 JAX package's npz layout (``system/mapio.py``).
 
-Not ported: the GUI console (``parse_line``), the viewers,
-``profile_frame``, ``rescale_map`` and ``align_to_dominant_plane``.
+Beside them: ``profile_frame`` (one frame stage by stage, each timed to a
+device synchronise), the GUI console ``parse_line`` (the reference's
+command vocabulary and ``Name=Value`` variables), the monitor images
+``small_image`` and ``keyframe_view``, and the map commands
+``rescale_map`` and ``align_to_dominant_plane``.
 """
 
 from __future__ import annotations
@@ -39,15 +42,22 @@ from mcptam_tpu_torch.config import (
 )
 from mcptam_tpu_torch.core.camera import CameraModel
 from mcptam_tpu_torch.core.se3 import SE3
+from mcptam_tpu_torch.map.align import (
+    apply_global_scale, apply_global_transform, plane_align_transform,
+)
 from mcptam_tpu_torch.map.keyframe import FrameFeatures, make_frame_features
 from mcptam_tpu_torch.map.mapmaker_core import need_new_mkf
 from mcptam_tpu_torch.map.state import (
     count_mkfs, count_points, create_map_state, pose_depth_distance,
 )
 from mcptam_tpu_torch.ops.minipatch import filter_frame_candidates
-from mcptam_tpu_torch.system.mapio import dump_map_ascii, load_map, save_map
+from mcptam_tpu_torch.system.mapio import (
+    dump_cameras_ascii, dump_map_ascii, load_map, save_map,
+)
 from mcptam_tpu_torch.system.mapmaker import MM_INITIALIZING, MapMaker, _to_host
 from mcptam_tpu_torch.system.timing import Stopwatch, TrackerTiming
+from mcptam_tpu_torch.system.viewer import frame_small_image, keyframe_overlay
+from mcptam_tpu_torch.tracker import tracker as T
 from mcptam_tpu_torch.tracker.reloc import attempt_recovery
 from mcptam_tpu_torch.tracker.tracker import (
     QUALITY_GOOD, apply_tracker_point_stats, create_tracker_state, track_frame,
@@ -142,6 +152,7 @@ class System:
         self.frame_count = 0
         # runtime variables (the reference's GVars3, src/System.cc:114-131)
         self.vars = {
+            "DrawLevel": 0,
             "GlareMasking": False,
             "AddingMKFs": True,
             "CrossCamera": mcfg.cross_camera,
@@ -158,6 +169,9 @@ class System:
         self.last_reset_dropped = 0
         self._force_add_next = False   # ManualAddMKF request
         self._prev_feats = None        # the candidate filter's previous frame
+        self._last_result = None       # its TrackResult, for the monitor image
+        self.done = False              # the quit / exit command's latch
+        self._kf_view = 0              # the KeyFrameViewer's cursor
         # frames dispatched before the last successful relocalisation carry
         # stale lost flags: draining them must not relocalise again
         self._reloc_done_fid = -1
@@ -181,8 +195,9 @@ class System:
         return torch.as_tensor(cam_active).to(self.device, torch.bool)
 
     def set_var(self, name: str, value):
-        """Set a runtime variable (GVars3 analogue): GlareMasking masks the
-        next frames' features, AddingMKFs gates keyframe adds, CrossCamera
+        """Set a runtime variable (GVars3 analogue): DrawLevel is the
+        monitor image's pyramid level, GlareMasking masks the next frames'
+        features, AddingMKFs gates keyframe adds, CrossCamera
         and LevelZeroPoints set the point-creation policy of later MKFs."""
         if name not in self.vars:
             raise KeyError(f"unknown var {name!r}; have {sorted(self.vars)}")
@@ -368,6 +383,7 @@ class System:
                                       cam_active=entry.cam_active)
                 info.added_mkf = True
             self._prev_feats = entry.feats
+            self._last_result = entry.result
         timing.add = sw.lap()
         return info
 
@@ -534,7 +550,171 @@ class System:
         self.mapmaker.state = int(extras["mm_state"])
         self.mapmaker.on_map_changed()
         # a restore starts clean: the previous session's frames must not
-        # feed the candidate filter
+        # feed the candidate filter or the monitor image
         self._prev_feats = None
+        self._last_result = None
         self._force_add_next = False
+        self.done = False
+        self._kf_view = 0
         self._inflight.clear()
+
+    # -- staged profiling (the TrackerTiming taxonomy) ------------------------
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def profile_frame(self, images, cam_active=None) -> TrackerTiming:
+        """Track one frame stage by stage, each stage ended by a device
+        synchronise, and fill the reference's TrackerTiming taxonomy
+        (msg/TrackerTiming.msg, src/Tracker.cc:293-332): features, sbi,
+        motion, pvs, coarse, fine, pose, depth (scene depth, quality,
+        state update) and add (point statistics and the add heuristic).
+        The tracker and map state change as in process_frame's device step;
+        the map-maker does not tick and no keyframe is added."""
+        tcfg, ms, cams = self.tcfg, self.ms, self.cams
+        timing = TrackerTiming()
+
+        def done(stage):
+            self._sync()
+            setattr(timing, stage, sw.lap())
+
+        self._sync()
+        sw = Stopwatch()
+        images = torch.as_tensor(images).to(self.device, torch.float32)
+        cam_active = self._cam_active(cam_active)
+        feats = self._features(images)
+        done("kf_downsample")
+        sbi_rot, have_rot = T._stage_sbi(self.ts, feats, self.cams_sbi,
+                                         ms.cam_from_base, tcfg, cam_active)
+        done("sbi")
+        pose_pred = T._stage_motion(self.ts, sbi_rot, have_rot)
+        done("motion")
+        pvs = T._stage_pvs(ms, cams, pose_pred, cam_active)
+        done("pvs")
+        pac, do_coarse = T._stage_coarse(ms, cams, feats, pvs, pose_pred, tcfg)
+        done("coarse")
+        fine = T._stage_fine(ms, cams, feats, pvs, pac, do_coarse, tcfg)
+        done("fine")
+        pose_new, cov, outlier = T._stage_pose(ms, cams, pac, fine, tcfg)
+        done("pose")
+        self.ts, res = T._stage_finalize(self.ts, ms, feats, pose_new, cov, fine,
+                                         outlier, sbi_rot, tcfg, cam_active)
+        done("depth")
+        self.ms = apply_tracker_point_stats(ms, res, self.mcfg.min_outliers,
+                                            self.mcfg.outlier_multiplier,
+                                            enable=~res.lost)
+        # the add heuristic is timed; profiling adds no keyframe
+        need_new_mkf(self.ms, res.pose, torch.mean(res.mean_depth), self.mcfg)
+        done("add")
+        timing.total = (timing.kf_downsample + timing.sbi + timing.motion + timing.pvs
+                        + timing.coarse + timing.fine + timing.pose + timing.depth
+                        + timing.add)
+        self._prev_feats = feats
+        self._last_result = res
+        self.frame_count += 1
+        return timing
+
+    # -- the GUI console and the viewers (ref src/System.cc:305-405) -----------
+    def parse_line(self, line: str):
+        """GVars3 ``GUI.ParseLine`` analogue: one command string.  The
+        reference's vocabulary (src/System.cc:64-77): quit/exit, Reset,
+        InitTracker, ShowNextKeyFrame, ShowPrevKeyFrame, ScaleMapUp,
+        ScaleMapDown, ExportMapToFile [map.dat [cameras.dat]],
+        ManualAddMKF, KeyPress <k>; and ``Name=Value`` assignments to the
+        runtime variables."""
+        line = line.strip()
+        if not line:
+            return
+        if "=" in line and " " not in line.split("=", 1)[0]:
+            name, value = (x.strip() for x in line.split("=", 1))
+            if name not in self.vars:
+                raise KeyError(f"unknown var {name!r}; have {sorted(self.vars)}")
+            cur = self.vars[name]
+            if isinstance(cur, bool):
+                value = value.lower() in ("1", "true", "yes", "on")
+            elif isinstance(cur, int):
+                value = int(value)
+            elif isinstance(cur, float):
+                value = float(value)
+            self.set_var(name, value)
+            return
+        cmd, *params = line.split()
+        if cmd in ("quit", "exit"):
+            self.done = True
+        elif cmd == "Reset":
+            self.reset()
+        elif cmd == "InitTracker":
+            # the reference's RequestInit only matters before a map exists
+            # (src/Tracker.cc:625-631); here the map bootstraps on its own
+            pass
+        elif cmd == "ShowNextKeyFrame":
+            self._kf_view += 1
+        elif cmd == "ShowPrevKeyFrame":
+            self._kf_view -= 1
+        elif cmd == "ScaleMapUp":
+            self.rescale_map(2.0)
+        elif cmd == "ScaleMapDown":
+            self.rescale_map(0.5)
+        elif cmd == "ExportMapToFile":
+            dump_map_ascii(params[0] if params else "map.dat", self.ms)
+            dump_cameras_ascii(params[1] if len(params) > 1 else "cameras.dat",
+                               self.cams, self.cam_from_base, self.H, self.W)
+        elif cmd == "ManualAddMKF":
+            self.manual_add_mkf()
+        elif cmd == "KeyPress":
+            key = params[0] if params else ""
+            if key == "r":
+                self.reset()
+            elif key in ("q", "Escape"):
+                self.done = True
+            elif key == "o":
+                self.mapmaker.on_map_changed()  # SetNotConverged analogue
+            elif key == "a":
+                self.parse_line("ManualAddMKF")
+            elif key == "Space":
+                self.parse_line("InitTracker")
+        else:
+            raise ValueError(f"unhandled GUI command: {cmd!r}")
+
+    def small_image(self, level: int | None = None):
+        """Tiled monitor image of the last drained frame with its found
+        measurements (ref PublishSmallImage) -> (H,W,3) uint8, or None
+        before the first frame."""
+        if self._prev_feats is None:
+            return None
+        return frame_small_image(self._prev_feats, self._last_result,
+                                 self.vars["DrawLevel"] if level is None else level)
+
+    def keyframe_view(self, cam_idx: int = 0):
+        """The KeyFrameViewer's image: the measurement overlay of the MKF
+        under the cursor (ref KeyFrameViewer.h:57-89) -> (H,W,3) uint8, or
+        None when the map has no keyframe."""
+        valid = np.nonzero(self.ms.mkfs.valid.cpu().numpy())[0]
+        if valid.size == 0:
+            return None
+        return keyframe_overlay(self.ms, int(valid[self._kf_view % valid.size]), cam_idx)
+
+    # -- map commands ----------------------------------------------------------
+    def rescale_map(self, scale: float):
+        """Uniform global map rescale (the Rescale command); the tracker's
+        pose scales with it."""
+        self.ms = apply_global_scale(self.ms, scale)
+        self.ts.pose = SE3(R=self.ts.pose.R, t=self.ts.pose.t * scale)
+        self.mapmaker.on_map_changed()
+
+    def align_to_dominant_plane(self, seed: int = 0) -> bool:
+        """Re-express the world with the dominant plane of the live points at
+        z = 0 (CalcPlaneAligner + ApplyGlobalTransformationToMap); the
+        RANSAC's triples come from a generator seeded with ``seed``.
+        Returns whether a plane was found; without one nothing changes."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        pts = self.ms.points
+        Tn, ok = plane_align_transform(pts.pos_w, pts.valid & ~pts.bad, gen)
+        if not bool(ok):
+            return False
+        self.ms = apply_global_transform(self.ms, Tn)
+        # the tracker's pose lives in world coordinates:
+        # base_from_world' = base_from_world @ T^-1
+        self.ts.pose = self.ts.pose @ Tn.inv()
+        self.mapmaker.on_map_changed()
+        return True
