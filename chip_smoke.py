@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's tracking, mapping and live paths and its
-`mcptam` app once on one NVIDIA GPU.
+"""Drive the PyTorch port's tracking, mapping and live paths, its
+`mcptam` app and its client/server split once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -67,7 +67,21 @@ Phases, each fatal on failure:
      table, small_image, align_to_dominant_plane on the tracked map and
      on it pressed flat (camera-frame coordinates kept either way; the
      flat map aligned) and plane_align_transform on tests/test_align.py's
-     planar cloud.
+     planar cloud;
+  9. client/server: (a) in one process, a MapServer on a thread and a
+     SystemClient talking to it over loopback TCP, both at a 64-MKF
+     capacity (every LM step of the server's BA on K4's global route), fed
+     phase 7's 24 warm-up frames one by one: every frame reported, none
+     lost, ATE, an MKF added and integrated, SRC_TRACKER measurements and
+     a monitor packet on the server, the client's point and measurement
+     sections equal to the server's last UPDATE after the final exchange,
+     no exception logged by the server loop, the kernels of both sides
+     launched; it prints the frames/s, the messages and bytes each way,
+     how each keyframe message's image travelled (JPEG or raw) and the
+     server's LM steps; (b) the server app and the client app as two
+     processes on phase 8's dataset, the server at the default capacity:
+     the client exits with 0 after reporting every frame once, none lost,
+     and SIGTERM stops the server with 0.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the FAST front-end must launch once a frame (phase 6 adds the features the
@@ -81,6 +95,7 @@ CUDA device is present or any phase fails.
 """
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -160,6 +175,14 @@ CAPACITY_COST_TOL = 1e-4
 # and make_sbi finishes with the reference's linear resize
 RESIZE_H, RESIZE_W = 480, 752
 SBI_TOL = 1e-4          # the card's SBI against the CPU's
+# the client/server phase: (a) runs both sides at a 64-MKF capacity, so
+# every LM step of the server's BA solves n = 384, K4's global route; after
+# the last frame the server's queue must empty and a BA finish within
+# CS_DEADLINE_S, and so must the final exchange; (b) gives the server app
+# CS_START_S to print its port and the client app CS_CLIENT_TIMEOUT_S for
+# the whole run
+CS_MAX_MKFS, CS_DEADLINE_S = 64, 120.0
+CS_START_S, CS_CLIENT_TIMEOUT_S = 120.0, 300.0
 # the H100 SXM's published peaks: HBM bytes/s and f32 operations/s outside
 # the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -1496,6 +1519,284 @@ def phase_app(cams, cfb, card):
     return total
 
 
+class ErrorRecords(logging.Handler):
+    """A logging handler that keeps the records of ERROR and above."""
+
+    def __init__(self):
+        super().__init__(level=logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def recording_sends(channel) -> list:
+    """Wrap ``channel.send``; the list returned gets (action, blob) of every
+    message as it went on the wire."""
+    sent = []
+    send = channel.send
+
+    def recording(action, arrays=None):
+        blob = send(action, arrays)
+        sent.append((action, blob))
+        return blob
+
+    channel.send = recording
+    return sent
+
+
+def wait_for(cond, timeout_s: float, what: str):
+    deadline = time.time() + timeout_s
+    while not cond():
+        if time.time() > deadline:
+            raise AssertionError(f"client/server: {what} within {timeout_s:.1f} s")
+        time.sleep(0.01)
+
+
+def wait_for_ba(server, client, client_sent, timeout_s: float):
+    """With the server's loop running: the client takes the server's
+    messages until the server has every message the client sent, its queue
+    is empty, and a BA has finished since this call began."""
+    n_ba = len(server.mapmaker.ba_log)
+
+    def done():
+        client.ms = client.mapmaker.step(client.ms)
+        return (server.channel.stats["msgs_recv"] >= len(client_sent)
+                and server.mapmaker.queue_size() == 0
+                and len(server.mapmaker.ba_log) > n_ba)
+
+    wait_for(done, timeout_s, "the server's queue did not empty and a BA finish")
+
+
+def settle(server, server_sent, client, client_sent, timeout_s: float):
+    """With the server's loop stopped: run the two sides in turn in this
+    thread until the client has nothing more to send.  The server handles
+    every message the client sent and ticks until it is idle (an UPDATE
+    follows a DELETE); the client takes every message the server sent."""
+    deadline = time.time() + timeout_s
+
+    def left():
+        return max(deadline - time.time(), 0.0)
+
+    while True:
+        wait_for(lambda: server.channel.stats["msgs_recv"] >= len(client_sent), left(),
+                 "the client's messages did not arrive")
+        while server.spin_once(timeout_ms=0):
+            if not left():
+                raise AssertionError(f"client/server: the server did not settle "
+                                     f"within {timeout_s:.1f} s")
+        wait_for(lambda: client.channel.stats["msgs_recv"] >= len(server_sent), left(),
+                 "the server's messages did not arrive")
+        n = len(client_sent)
+        client.ms = client.mapmaker.step(client.ms)
+        if len(client_sent) == n:
+            return
+
+
+def client_server_in_process(cams, cfb, cams_sbi, card):
+    """Phase 9 (a): a MapServer on a thread, a SystemClient over loopback
+    TCP, both at CS_MAX_MKFS, phase 7's warm-up frames one by one.  Returns
+    the launch counts."""
+    import threading
+    import torch
+    from mcptam_tpu_torch import backend
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import render_rig
+    from mcptam_tpu_torch.map.state import SRC_TRACKER, create_map_state
+    from mcptam_tpu_torch.system import network
+    from mcptam_tpu_torch.system.client import SystemClient
+    from mcptam_tpu_torch.system.evaluate import evaluate_run
+    from mcptam_tpu_torch.system.netcodec import (
+        ACTION_ADD, ACTION_INIT, ACTION_UPDATE, message_encodings, unpack_arrays,
+    )
+
+    dev = cfb.t.device
+    tangents = [live_tangent(i) for i in range(N_LIVE_WALK)]
+    poses = [SE3.exp(torch.tensor(v, dtype=torch.float32, device=dev)) for v in tangents]
+    frames = [torch.clamp(render_rig(cams, cfb, p, SEED, H, W), 0, 255).to(torch.uint8)
+              for p in poses]
+    gt = np.stack([np.concatenate([p.R.cpu().numpy(), p.t.cpu().numpy()[:, None]], 1)
+                   for p in poses]).astype(np.float64)
+    masks = torch.ones((C, H, W), dtype=torch.bool, device=dev)
+    masks[:, H - MASK_BAND:] = False
+
+    errors = ErrorRecords()
+    net_log = logging.getLogger(network.__name__)
+    net_log.addHandler(errors)
+    server_ch = network.Channel.serve(0)
+    server_sent = recording_sends(server_ch)
+    server = network.MapServer(server_ch, cams, create_map_state(
+        H, W, C, cfb, max_mkfs=CS_MAX_MKFS))
+    lm_chunks = []
+    lm_run = server.mapmaker._lm_run
+
+    def counting_lm_run(*a, **k):
+        lm_chunks.append(server.mapmaker.ba_chunk)
+        return lm_run(*a, **k)
+
+    server.mapmaker._lm_run = counting_lm_run
+    stop = threading.Event()
+    thread = threading.Thread(target=server.run, args=(stop,), name="map-server")
+    client = None
+    try:
+        backend.reset_launch_counts()
+        thread.start()
+        client = SystemClient(cams, cfb, cams_sbi, H, W, "127.0.0.1", server_ch.port,
+                              max_mkfs=CS_MAX_MKFS, masks=masks)
+        client_sent = recording_sends(client.channel)
+        t0 = time.perf_counter()
+        infos = [client.process_frame(f) for f in frames]
+        infos += client.flush_pipeline()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        wait_for_ba(server, client, client_sent, CS_DEADLINE_S)
+        t_wait = time.perf_counter() - t0 - dt
+        stop.set()
+        thread.join(timeout=CS_DEADLINE_S)
+        if thread.is_alive():
+            raise AssertionError("client/server: the server loop did not stop")
+        settle(server, server_sent, client, client_sent, CS_DEADLINE_S)
+        torch.cuda.synchronize()
+        launches = backend.kernel_report()
+        stats = client.channel.stats
+    finally:
+        stop.set()
+        if thread.is_alive():
+            thread.join(timeout=CS_DEADLINE_S)
+        net_log.removeHandler(errors)
+        if client is not None:
+            client.close()
+        server_ch.close()
+
+    ids = [i.frame_id for i in infos]
+    scores = evaluate_run(infos, gt)
+    ms = server.ms
+    n_server_mkfs = int(ms.mkfs.valid.sum())
+    n_tracker = int((ms.meas.valid & (ms.meas.source == SRC_TRACKER)).sum())
+    n_added = sum(i.added_mkf for i in infos)
+    updates = [blob for action, blob in server_sent if action == ACTION_UPDATE]
+    adds = [("ADD" if action == ACTION_ADD else "INIT", len(blob),
+             message_encodings(blob)["img0"])
+            for action, blob in client_sent if action in (ACTION_ADD, ACTION_INIT)]
+    final = unpack_arrays(updates[-1])
+    mine = network.map_update_arrays(client.ms)
+    differ = [k for k, v in final.items()
+              if k.startswith(("pt_", "ms_")) and not np.array_equal(mine[k], v)]
+    lm_steps = sum(lm_chunks)
+    k4_global = launches["spd_solve_blocked_global"]
+    print(f"client/server (a): {len(infos)} frames in {dt:.2f} s ({len(infos) / dt:.2f} "
+          f"frames/s over the client's calls, flush included) on {card}; then {t_wait:.2f} s "
+          f"until the server's queue was empty and a BA finished; lost "
+          f"{scores['lost_frames']}, ATE "
+          f"{scores['ate']['rmse']:.3e} m; {n_added} MKFs added on the client, server map "
+          f"{n_server_mkfs} MKFs / {int(ms.points.valid.sum())} points / {n_tracker} "
+          f"SRC_TRACKER measurements; monitor packets {server.monitor_count}")
+    print(f"client/server (a) wire: client -> server {stats['msgs_sent']} messages "
+          f"{stats['bytes_sent']} bytes, server -> client {stats['msgs_recv']} messages "
+          f"{stats['bytes_recv']} bytes, reconnects {stats['reconnects']}; keyframe messages "
+          + ", ".join(f"{kind} {n} bytes ({enc})" for kind, n, enc in adds)
+          + f"; {len(updates)} UPDATEs, the last {len(updates[-1])} bytes")
+    print(f"client/server (a) server BA: {len(lm_chunks)} chunks, {lm_steps} LM steps, "
+          f"finished BAs {server.mapmaker.ba_log}, K4 global-route launches {k4_global} "
+          f"({k4_global / max(lm_steps, 1):.2f} an LM step), n = {6 * CS_MAX_MKFS}; "
+          f"launches {launches}")
+    if errors.records:
+        raise AssertionError("client/server: the server loop logged "
+                             f"{len(errors.records)} exceptions, the first: "
+                             f"{errors.records[0].getMessage()}")
+    if ids != list(range(N_LIVE_WALK)):
+        raise AssertionError(f"client/server: frames reported {ids}")
+    if scores["lost_frames"] or not scores["ate"]["rmse"] < MAX_ATE:
+        raise AssertionError(f"client/server: lost {scores['lost_frames']}, "
+                             f"ATE {scores['ate']['rmse']} (< {MAX_ATE})")
+    if n_added < 1 or n_server_mkfs < 2:
+        raise AssertionError(f"client/server: {n_added} MKFs added, {n_server_mkfs} on the server")
+    if n_tracker <= 0:
+        raise AssertionError("client/server: no SRC_TRACKER measurement on the server")
+    if server.monitor_count < 1:
+        raise AssertionError("client/server: no monitor packet reached the server")
+    if differ:
+        raise AssertionError(f"client/server: the client's sections differ from the last "
+                             f"UPDATE in {differ}")
+    must = ["fast_frontend", "search_patches", "esm_align_all", "half_sample", "gather_windows",
+            "stability_filter", "spd_solve_blocked_global"]
+    for k in must:
+        if launches[k] <= 0:
+            raise AssertionError(f"client/server: kernel {k} never launched")
+    if launches["fast_frontend"] != N_LIVE_WALK:      # K1 once a frame, on the client
+        raise AssertionError(f"client/server: fast_frontend launched "
+                             f"{launches['fast_frontend']} times for {N_LIVE_WALK} frames")
+    return launches
+
+
+def client_server_apps(cams, cfb, card):
+    """Phase 9 (b): the server app and the client app as two processes on
+    phase 8's dataset, the server at the default capacity."""
+    import select
+    import signal
+    import tempfile
+
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root_dir)
+    device = cfb.t.device.type
+    with tempfile.TemporaryDirectory() as root:
+        data, _ = app_inputs(root, cams, cfb)
+        rig = os.path.join(data, "rig.json")
+        server_log = os.path.join(root, "server.log")
+        t0 = time.perf_counter()
+        with open(server_log, "w") as log:
+            server = subprocess.Popen(
+                [sys.executable, "-m", "mcptam_tpu_torch.apps.server", "--rig", rig,
+                 "--port", "0", "--device", device], stdout=subprocess.PIPE, stderr=log,
+                text=True, env=env, cwd=root_dir)
+        try:
+            ready, _, _ = select.select([server.stdout], [], [], CS_START_S)
+            line = server.stdout.readline() if ready else ""
+            if not line.startswith("PORT "):
+                raise AssertionError(f"client/server (b): no PORT line from the server "
+                                     f"({line!r}, rc {server.poll()})")
+            port = int(line.split()[1])
+            t1 = time.perf_counter()
+            client = subprocess.run(
+                [sys.executable, "-m", "mcptam_tpu_torch.apps.client", "--rig", rig,
+                 "--video", data, "--server", f"127.0.0.1:{port}", "--fps", "1000",
+                 "--device", device],
+                capture_output=True, text=True, env=env, cwd=root_dir,
+                timeout=CS_CLIENT_TIMEOUT_S)
+            dt = time.perf_counter() - t1
+        finally:
+            server.send_signal(signal.SIGTERM)
+            try:
+                server_rc = server.wait(timeout=CS_DEADLINE_S)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server_rc = server.wait()
+            server.stdout.close()
+        with open(server_log) as f:
+            server_err = f.read()
+    frames = [ln for ln in client.stdout.splitlines() if ln.startswith("frame ")]
+    ids = [int(ln.split()[1]) for ln in frames]
+    n_lost = sum("lost=0" not in ln for ln in frames)
+    print(f"client/server (b): server up in {t1 - t0:.2f} s; client process {dt:.2f} s for "
+          f"{len(frames)} frames ({len(frames) / dt:.2f} frames/s, start-up included) on "
+          f"{card}; client rc {client.returncode}, lost {n_lost}; SIGTERM -> server rc "
+          f"{server_rc}")
+    if client.returncode != 0:
+        raise AssertionError(f"client/server (b): client rc {client.returncode}:\n"
+                             f"{client.stderr[-3000:]}")
+    if ids != list(range(N_LIVE_WALK)) or n_lost:
+        raise AssertionError(f"client/server (b): frames {ids}, {n_lost} lost")
+    if server_rc != 0 or "MapServer loop iteration failed" in server_err:
+        raise AssertionError(f"client/server (b): server rc {server_rc}:\n{server_err[-3000:]}")
+
+
+def phase_client_server(cams, cfb, cams_sbi, card):
+    """Phase 9.  Returns (a)'s launch counts."""
+    launches = client_server_in_process(cams, cfb, cams_sbi, card)
+    client_server_apps(cams, cfb, card)
+    return launches
+
+
 def planar_cloud(rng, n_plane=N_PLANE, n_out=20, N=128):
     """tests/test_align.py's tilted plane with outliers, padded to N slots."""
     n = np.array([0.2, -0.3, 0.93])
@@ -1693,13 +1994,17 @@ def main() -> int:
 
     # ---- 8. the mcptam app on a dataset directory, through the native queue
     launches_app = phase_app(cams, cfb, card)
+
+    # ---- 9. client/server: in one process over loopback TCP, then the apps
+    launches_cs = phase_client_server(cams, cfb, cams_sbi, card)
     launches = dict(launches_live)
     # BA's kernels are read from their own paths: K4 from mapping, K5 and
     # K4's global path from LM
     launches["spd_solve_blocked"] = launches_map["spd_solve_blocked"]
     launches.update(launches_lm)
     by_phase = {"tracking": launches_track, "lm": launches_lm,
-                "mapping": launches_map, "live": launches_live, "app": launches_app}
+                "mapping": launches_map, "live": launches_live, "app": launches_app,
+                "client_server": launches_cs}
 
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -2,6 +2,8 @@
 binaries (CMakeLists.txt:59-105):
 
   python -m mcptam_tpu_torch.apps.mcptam   (standalone tracker and mapper)
+  python -m mcptam_tpu_torch.apps.client   (on-board tracker of the client/server split)
+  python -m mcptam_tpu_torch.apps.server   (off-board map server)
 
 Headless and file-driven: rig configs are JSON (io/rig_config.py), video is
 a (C,T,H,W) uint8 .npy/.npz or a dataset directory (io/dataset.py),

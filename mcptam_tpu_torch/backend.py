@@ -9,6 +9,8 @@ reports which tier a dispatch site *would* take.
 
 from __future__ import annotations
 
+import threading
+
 # kernel name -> launches since the last reset; one plain integer per wrapper
 LAUNCHES = {
     "fast_frontend": 0,   # ops/fast_kernel.py, csrc/fast.cu
@@ -24,11 +26,23 @@ LAUNCHES = {
 }
 
 
+_lock = threading.Lock()   # a client's tracker and a map server may share a process
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: its wrapper calls this where it
+    launches the kernel."""
+    with _lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def kernel_report() -> dict:
     """Launch count of every kernel since the last reset."""
-    return dict(LAUNCHES)
+    with _lock:
+        return dict(LAUNCHES)

@@ -114,7 +114,7 @@ def spd_solve_kernel(A: torch.Tensor, B: torch.Tensor,
         err = load().mcptam_spd_solve(A.data_ptr(), B.data_ptr(), X.data_ptr(),
                                       n, m, int(blocked), stream)
     check(err, which)
-    backend.LAUNCHES[which] += 1
+    backend.count_launch(which)
     return X
 
 

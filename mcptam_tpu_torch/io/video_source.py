@@ -22,7 +22,7 @@ class SyncedFrameQueue:
 
     def __init__(self, n_cams: int, H: int, W: int,
                  sync_tol: float = 5e-3, max_depth: int = 8):
-        self._lib = load()
+        self._lib = load("framequeue")
         self.n_cams = n_cams
         self.H, self.W = H, W
         self.frame_bytes = H * W

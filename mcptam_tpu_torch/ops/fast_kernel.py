@@ -101,7 +101,7 @@ def fast_frontend_levels(levels) -> list:
     err = lib.mcptam_fast_frontend_levels(ctypes.addressof(c_ptrs), ctypes.addressof(c_dims),
                                           L, C, scratch.data_ptr(), stream)
     check(err, "fast_frontend_levels")
-    backend.LAUNCHES["fast_frontend"] += 1
+    backend.count_launch("fast_frontend")
     return [tuple(out) for out in outs]
 
 

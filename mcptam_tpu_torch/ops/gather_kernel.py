@@ -59,5 +59,5 @@ def gather_windows(plane: torch.Tensor, rows: torch.Tensor,
         out.data_ptr(), K, HH, AW, G, stream,
     )
     check(err, "gather_windows")
-    backend.LAUNCHES["gather_windows"] += 1
+    backend.count_launch("gather_windows")
     return out

@@ -60,5 +60,5 @@ def gather_unaligned(plane: torch.Tensor, rows: torch.Tensor,
         K, HH, AW, G, stream,
     )
     check(err, "gather_unaligned")
-    backend.LAUNCHES["gather_unaligned"] += 1
+    backend.count_launch("gather_unaligned")
     return out

@@ -35,5 +35,5 @@ def half_sample_kernel(img: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = lib.mcptam_half_sample(img.data_ptr(), out.data_ptr(), N, H, W, stream)
     check(err, "half_sample")
-    backend.LAUNCHES["half_sample"] += 1
+    backend.count_launch("half_sample")
     return out

@@ -212,5 +212,5 @@ def stability_search(prev_plane: torch.Tensor, cur_plane: torch.Tensor, desc: to
         out.ran.data_ptr(), out.found.data_ptr(), out.xy.data_ptr(), out.ssd.data_ptr(),
         stream)
     check(err, "stability_search")
-    backend.LAUNCHES["stability_filter"] += 1
+    backend.count_launch("stability_filter")
     return out

@@ -40,5 +40,5 @@ def esm_align_all(cur, target, gx, gy, n_iterations: int = 9):
         se2.data_ptr(), score.data_ptr(), C, n_iterations, stream,
     )
     check(err, "esm_align_all")
-    backend.LAUNCHES["esm_align_all"] += 1
+    backend.count_launch("esm_align_all")
     return se2, score

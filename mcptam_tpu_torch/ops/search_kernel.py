@@ -201,5 +201,5 @@ def search_patches(packed_atlas3, level_hw, cam_idx, search_level, templates,
         region_ok.data_ptr(), win.data_ptr(), None if box is None else box.data_ptr(),
         stream)
     check(err, "search_patches")
-    backend.LAUNCHES["search_patches"] += 1
+    backend.count_launch("search_patches")
     return found, pos_l0, best_ssd, dict(win=win, region_ok=region_ok, by=by, bx=bx)
