@@ -18,9 +18,11 @@ Phases, each fatal on failure:
      SPD Cholesky solves at n = 96 and 288 on random SPD matrices and on
      the reduced camera system of one LM step of phase 5's problem (timed
      at both sizes beside torch.linalg.solve and torch.linalg.cholesky +
-     torch.cholesky_solve), K4's global path at n = 324, 384, 576 and
-     1536 and on the Schur matrix of phase 5's problem in a 64-MKF
-     capacity (n = 384), the half-sample on random f32 and a rendered
+     torch.cholesky_solve), K4's global path (its launches a solve, NB
+     and TILE printed) at n = 324, 384, 576 and 1536 and on the Schur
+     matrix of phase 5's problem in a 64-MKF capacity (n = 384), and
+     timed at n = 288 too, a size its route leaves to the shared K4, the
+     half-sample on random f32 and a rendered
      frame, the unaligned gather on 3840 windows of 29 and of 9 pixels,
      some overrunning the plane, the fused patch search on the coarse
      and fine calls of a tracked batch (box sums bit-exact, offsets up to
@@ -166,6 +168,7 @@ SEARCH_AGREE, SEARCH_TIE, SUBPIX_TOL = 0.99, 1e-3, 1e-3
 # K4's global path: random SPD beyond the shared range, up to 256 MKFs
 # (n = 6 x 256), and the phase 5 problem placed in a 64-MKF capacity
 SPD_GLOBAL_SIZES, CAPACITY_MKFS = (324, 384, 576, 1536), 64
+SHARED_CAPACITY = 288     # the default 48 MKFs: the shared K4's, timed on the global path too
 # the capacity run's final LM cost against the same run on the plain
 # solver in float64.  Not in float32: at 64 MKFs that run's accept/reject
 # path departs from both the float64 run and K4's (the phase prints all
@@ -860,12 +863,49 @@ def check_spd_global(sf, sf_b, gen):
     SPD_TOL against the plain solve) and on the Schur matrix of phase 5's
     problem placed in a CAPACITY_MKFS capacity (backward error at most 10x
     the plain solver's).  Timed at every size beside torch.linalg.solve
-    (the plain version) and torch.linalg.cholesky + torch.cholesky_solve.
-    Returns the row at n = 6 CAPACITY_MKFS and a row for each size."""
+    (the plain version) and torch.linalg.cholesky + torch.cholesky_solve,
+    and at n = SHARED_CAPACITY beside the shared K4 its route takes there.
+    Prints the launches a solve enqueues and NB and TILE, as the library
+    states them and as the wrapper expects them.  Returns the row at
+    n = 6 CAPACITY_MKFS and a row for each size."""
     import torch
-    from mcptam_tpu_torch.core.spd import route, spd_solve_kernel, spd_solve_reference
+    from mcptam_tpu_torch.core.spd import (
+        global_launches, global_plan, global_work_floats, route, spd_solve_kernel,
+        spd_solve_reference,
+    )
 
     dev = sf.device
+    for n in SPD_GLOBAL_SIZES:
+        plan = global_plan(n, 1)
+        print(f"  spd_solve_blocked_global n={n} plan: {plan}")
+        if (plan["launches"], plan["work_floats"]) != (global_launches(n),
+                                                       global_work_floats(n, 1)):
+            raise AssertionError(f"spd_solve_blocked_global n={n}: the library's plan {plan} "
+                                 f"is not the wrapper's ({global_launches(n)} launches, "
+                                 f"{global_work_floats(n, 1)} floats)")
+    from mcptam_tpu_torch.csrc._build import check, load
+
+    def global_direct(A, b):
+        """The global path's C entry point, whatever route() picks for n."""
+        n, X = A.shape[0], torch.empty_like(b)
+        work = torch.empty(global_work_floats(n, 1), dtype=torch.float32, device=dev)
+        check(load().mcptam_spd_solve_global(A.data_ptr(), b.data_ptr(), X.data_ptr(),
+                                             work.data_ptr(), n, 1, work.numel(),
+                                             torch.cuda.current_stream().cuda_stream),
+              "mcptam_spd_solve_global")
+        return X
+
+    A = random_spd(SHARED_CAPACITY, gen, dev)
+    b = torch.randn(SHARED_CAPACITY, 1, generator=gen).to(dev)
+    x, x_plain = global_direct(A, b), spd_solve_reference(A, b)
+    rel = ((x - x_plain).abs().max() / x_plain.abs().max()).item()
+    if not (torch.isfinite(x).all() and rel <= SPD_TOL):
+        raise AssertionError(f"spd_solve_blocked_global n={SHARED_CAPACITY}: relative error {rel}")
+    g_ms = time_ms(lambda: global_direct(A, b))
+    s_ms = time_ms(lambda: spd_solve_kernel(A, b))
+    print(f"  spd_solve_blocked_global n={SHARED_CAPACITY} m=1 (route: "
+          f"{route(SHARED_CAPACITY, 1)}): global path {g_ms:.4f} ms, shared K4 {s_ms:.4f} ms, "
+          f"rel err vs plain {rel:.3g}")
     cases = [(f"random n={n}", random_spd(n, gen, dev), torch.randn(n, 1, generator=gen).to(dev))
              for n in SPD_GLOBAL_SIZES]
     cases.append((f"schur n={sf.shape[0]}", sf.contiguous(), sf_b.reshape(-1, 1).contiguous()))
@@ -894,7 +934,7 @@ def check_spd_global(sf, sf_b, gen):
             b_ms, b_by = bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n)
             sizes.append({"n": n, "max_abs_err": d, "ms": k_ms, "plain_ms": p_ms,
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": p_ms,
-                          "cholesky_solve_ms": chol_ms})
+                          "cholesky_solve_ms": chol_ms, "launches_a_solve": global_launches(n)})
             print(f"  spd_solve_blocked_global n={n} m=1: kernel {k_ms:.4f} ms, plain = "
                   f"torch.linalg.solve {p_ms:.4f} ms, cholesky + cholesky_solve "
                   f"{chol_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
@@ -982,7 +1022,9 @@ def phase_lm(dev, card):
         return lambda A, b: spd_solve_reference(A.to(dtype), b.to(dtype)[:, None])[:, 0].float()
 
     backend.reset_launch_counts()
-    cost_global = run_cap()
+    t0 = time.perf_counter()
+    cost_global = run_cap()                 # host read ends the window
+    dt_global = time.perf_counter() - t0
     launches_global = backend.kernel_report()["spd_solve_blocked_global"]
     costs, orig = {}, bundle.spd_solve
     for dtype in (torch.float64, torch.float32):
@@ -996,7 +1038,8 @@ def phase_lm(dev, card):
           f"{cost_global:.7g} on spd_solve_blocked_global vs {costs[torch.float64]:.7g} on the "
           f"plain solver in float64 (rel {rel:.3g}, tol {CAPACITY_COST_TOL}) and "
           f"{costs[torch.float32]:.7g} in float32; unpadded {cost_blocked:.7g}; "
-          f"{launches_global} launches")
+          f"{launches_global} launches; {60 / dt_global:.2f} LM iterations/s "
+          f"({dt_global * 1e3 / 60:.3f} ms/iteration) on the global path on {card}")
     if not rel <= CAPACITY_COST_TOL or launches_global <= 0:
         raise AssertionError("the capacity LM run disagrees or never took K4's global path")
     return {"spd_solve_simple": launches, "spd_solve_blocked_global": launches_global}
@@ -1627,12 +1670,17 @@ def client_server_in_process(cams, cfb, cams_sbi, card):
     server_sent = recording_sends(server_ch)
     server = network.MapServer(server_ch, cams, create_map_state(
         H, W, C, cfb, max_mkfs=CS_MAX_MKFS))
-    lm_chunks = []
+    lm_chunks, lm_seconds = [], []
     lm_run = server.mapmaker._lm_run
 
     def counting_lm_run(*a, **k):
+        # each chunk timed to the end of its device work
+        t = time.perf_counter()
+        out = lm_run(*a, **k)
+        torch.cuda.synchronize()
+        lm_seconds.append(time.perf_counter() - t)
         lm_chunks.append(server.mapmaker.ba_chunk)
-        return lm_run(*a, **k)
+        return out
 
     server.mapmaker._lm_run = counting_lm_run
     stop = threading.Event()
@@ -1697,8 +1745,9 @@ def client_server_in_process(cams, cfb, cams_sbi, card):
           + ", ".join(f"{kind} {n} bytes ({enc})" for kind, n, enc in adds)
           + f"; {len(updates)} UPDATEs, the last {len(updates[-1])} bytes")
     print(f"client/server (a) server BA: {len(lm_chunks)} chunks, {lm_steps} LM steps, "
-          f"finished BAs {server.mapmaker.ba_log}, K4 global-route launches {k4_global} "
-          f"({k4_global / max(lm_steps, 1):.2f} an LM step), n = {6 * CS_MAX_MKFS}; "
+          f"{sum(lm_seconds) * 1e3 / max(lm_steps, 1):.3f} ms an LM step (mean, each chunk "
+          f"timed to its end), finished BAs {server.mapmaker.ba_log}, K4 global-route launches "
+          f"{k4_global} ({k4_global / max(lm_steps, 1):.2f} an LM step), n = {6 * CS_MAX_MKFS}; "
           f"launches {launches}")
     if errors.records:
         raise AssertionError("client/server: the server loop logged "

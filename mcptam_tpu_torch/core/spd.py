@@ -8,10 +8,14 @@ kernel.  On a CPU tensor it takes ``spd_solve_reference``, the stock solver,
 as the reference does off the TPU.  K4 keeps the packed factor, its
 current panel (transposed, PB x (n - PB + 32)), the panel's diagonal block
 and the right-hand sides in one block's shared memory up to n = 322 at
-m = 1; larger systems (the mapping LM's n = 6 x max_mkfs from 54 MKFs on)
-take its global path, the same schedule with the factor in a global
-workspace, up to n = 3384 at m = 1.  K5 keeps everything in shared memory
-and raises beyond n = 339.
+m = 1.  Larger systems (the mapping LM's n = 6 x max_mkfs from 54 MKFs on)
+take its global path: a blocked right-looking Cholesky spread over the
+SMs as 2 ceil(n / NB) + 1 launches on the current stream (a load, then a
+panel and a trailing-update launch a panel of NB columns, then one
+block's back-substitution), with a dense factor in a global workspace.
+Only the back-substitution's right-hand sides and two 32 x 33 tiles live
+in shared memory, so it takes n m <= 56000 (n = 56000 at m = 1).  K5
+keeps everything in shared memory and raises beyond n = 339.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from mcptam_tpu_torch import backend
 
 MAX_SHARED_BYTES = 232448  # 227 KB: the most shared memory one block may use
 K4_PB = 16  # K4's panel width (csrc/spd.cu PB)
-K4_GLOBAL_THREADS = 1024  # its global path's threads (csrc/spd.cu THREADS_GLOBAL)
+# its global path's panel width and trailing-update tile (csrc/spd.cu NB, TILE)
+K4_GLOBAL_NB, K4_GLOBAL_TILE = 32, 32
 
 
 def shared_bytes(n: int, m: int, blocked: bool = True) -> int:
@@ -41,13 +46,43 @@ def shared_bytes(n: int, m: int, blocked: bool = True) -> int:
 
 def shared_bytes_global(n: int, m: int) -> int:
     """Shared memory of K4's global path (csrc/spd.cu
-    ``global_front_floats``): the panel, the diagonal block and the pivot
-    scales, or one 32 x 33 transpose tile a warp while A is read, then the
-    rhs.  The factor lives in a global workspace."""
-    ld = (max(n - K4_PB, 0) + 3) // 4 * 4 + 32
-    panel = K4_PB * ld + K4_PB * K4_PB + K4_PB
-    tiles = K4_GLOBAL_THREADS // 32 * 32 * 33
-    return 4 * (max(panel, tiles) + n * m)
+    ``global_back_floats``): the back-substitution's two 32 x 33 diagonal
+    tiles and the right-hand sides.  The factor lives in a global
+    workspace."""
+    return 4 * (2 * 32 * 33 + n * m)
+
+
+def global_ld(n: int) -> int:
+    """Leading dimension of the global path's dense factor W (csrc/spd.cu
+    ``global_ld``): n rounded up to 4."""
+    return (n + 3) // 4 * 4
+
+
+def global_work_floats(n: int, m: int) -> int:
+    """The global path's workspace in floats (csrc/spd.cu
+    ``global_work_floats``): W (n x ld), the panel's factored diagonal block
+    (NB x NB) and the right-hand sides (n x m)."""
+    return n * global_ld(n) + K4_GLOBAL_NB ** 2 + n * m
+
+
+def global_launches(n: int) -> int:
+    """Kernel launches one global-path solve enqueues: the load, a panel
+    launch a panel, an update launch a panel but the last, the
+    back-substitution."""
+    return 2 * -(-n // K4_GLOBAL_NB) + 1
+
+
+def global_plan(n: int, m: int) -> dict:
+    """The global path's plan as the built kernel library states it
+    (``mcptam_spd_global_plan``): NB, TILE, the launches a solve enqueues,
+    the workspace in floats and the back-substitution's shared bytes."""
+    import ctypes
+
+    from mcptam_tpu_torch.csrc._build import load
+
+    plan = (ctypes.c_longlong * 5)()
+    load().mcptam_spd_global_plan(n, m, ctypes.addressof(plan))
+    return dict(zip(("nb", "tile", "launches", "work_floats", "back_shared_bytes"), plan))
 
 
 def route(n: int, m: int, blocked: bool = True) -> str:
@@ -107,9 +142,10 @@ def spd_solve_kernel(A: torch.Tensor, B: torch.Tensor,
     X = torch.empty((n, m), dtype=torch.float32, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     if which == "spd_solve_blocked_global":
-        work = torch.empty(n * (n + 1) // 2, dtype=torch.float32, device=A.device)
+        floats = global_work_floats(n, m)
+        work = torch.empty(floats, dtype=torch.float32, device=A.device)
         err = load().mcptam_spd_solve_global(A.data_ptr(), B.data_ptr(), X.data_ptr(),
-                                             work.data_ptr(), n, m, stream)
+                                             work.data_ptr(), n, m, floats, stream)
     else:
         err = load().mcptam_spd_solve(A.data_ptr(), B.data_ptr(), X.data_ptr(),
                                       n, m, int(blocked), stream)

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 # C entry point -> argument types; each returns a cudaError_t as int
 ENTRY_POINTS = {
     "mcptam_fast_frontend_levels": [_P] * 2 + [_I] * 2 + [_P] * 2,
@@ -38,7 +38,8 @@ ENTRY_POINTS = {
     "mcptam_gather_windows_u8": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_esm_align_all": [_P] * 6 + [_I] * 2 + [_P],
     "mcptam_spd_solve": [_P] * 3 + [_I] * 3 + [_P],
-    "mcptam_spd_solve_global": [_P] * 4 + [_I] * 2 + [_P],
+    "mcptam_spd_solve_global": [_P] * 4 + [_I] * 2 + [_S, _P],
+    "mcptam_spd_global_plan": [_I] * 2 + [_P],
     "mcptam_half_sample": [_P] * 2 + [_I] * 3 + [_P],
     "mcptam_gather_unaligned": [_P] * 4 + [_I] * 4 + [_P],
     "mcptam_search_patches": [_P] * 9 + [_I, _P, _F, _F] + [_I] * 4 + [_P] * 9,

@@ -1,14 +1,15 @@
 // Dense SPD solve A x = b for Hopper: Cholesky A = L L^T, then L y = b,
-// then L^T x = y, all inside one thread block.
+// then L^T x = y: inside one thread block while the factor fits its
+// shared memory, beyond that as a sequence of launches (K4's global path).
 //
 // Replaces: mcptam_tpu/core/spd.py::_spd_kernel_blocked (K4, the default)
 // and ::_spd_kernel (K5, MCPTAM_SPD_KERNEL=simple), both reached through
 // _spd_solve_pallas from ba/bundle.py::_solve_delta_soa once per LM step.
 // Plain version: mcptam_tpu_torch/core/spd.py::spd_solve_reference.
 //
-// What bounds it on the H100: the serial dependence chain.  The reduced
-// camera system is small (n = 6 x poses: 96 in the mapping slice, 288 at
-// capacity), so the factor is ~n^3/6 = 4 MFLOP at most; what costs is the
+// What bounds the one-block kernels on the H100: the serial dependence
+// chain.  The reduced camera system is small (n = 6 x poses: 96 in the
+// mapping slice, 288 at capacity), so the factor is ~n^3/6 = 4 MFLOP at most; what costs is the
 // n sequential pivot steps and the block-wide barriers between them, on
 // the one SM that holds the matrix.  One block per system keeps the whole
 // chain on that SM with no grid-wide synchronisation.  The TPU kernels'
@@ -49,15 +50,53 @@
 //   of its shuffles, not the arithmetic.
 //
 // * blocked, global path (K4 beyond shared memory, n > 322 at m = 1: the
-//   mapping LM's system is n = 6 x max_mkfs, so 54 MKFs and up): the same
-//   schedule and arithmetic over 1024 threads, with the packed factor in
-//   a global workspace the wrapper allocates (L2-resident up to n ~ 3000)
-//   and the panel, the diagonal block, the pivot scales and the rhs in
-//   shared memory.  The TPU kernel padded n to 128 and kept it all in
-//   VMEM; one SM's shared memory holds 227 KB.  The factor's n^3/6 FMAs
-//   run on one SM (at least 2.4 ms at n = 1536 at its FP32 rate) and its
-//   trailing triangle crosses L2 once a panel: right first, spreading the
-//   update over SMs is later work.
+//   mapping LM's system is n = 6 x max_mkfs, so 54 MKFs and up; it
+//   replaces _spd_kernel_blocked where the TPU kernel padded n to 128 and
+//   kept the whole factor in VMEM, which one SM's 227 KB cannot hold): a
+//   right-looking blocked Cholesky spread over the SMs as a fixed sequence
+//   of launches on the caller's stream, 2 ceil(n / NB) + 1 of them, with
+//   no synchronisation between blocks inside any kernel: each kernel reads
+//   only what earlier launches finished.  The workspace holds a dense
+//   row-major factor W (n x ld, ld = n rounded up to 4, the lower
+//   triangle used), the current panel's factored diagonal block Dg
+//   (NB x NB) and the right-hand sides Y (n x m).
+//   1. global_load: W's lower triangle from A's upper (W[i][k] = A[k][i])
+//      by 32 x 33 shared tiles, a block a tile, and B into Y.
+//   2. per panel p0 .. pe = p0 + NB, global_panel: every block loads its
+//      rows below the diagonal block (a row a thread), stages the block
+//      in shared memory and factors it itself in one warp (a lane a row,
+//      the column broadcast through shared memory; redundant NB^3 / 6 FMAs
+//      in place of a launch), then solves its rows against it
+//      (l_ij = (a_ij - sum_k<j l_ik l_jk) dinv_j).  Block 0 takes the
+//      panel's forward step Y[p0:pe] <- L_pp^-1 Y[p0:pe] and stores the
+//      factored block: into W when it is the only block (the last panel),
+//      else into Dg, since the other blocks of the launch read W's copy;
+//      global_update places Dg into W.
+//   3. global_update: a block a TILE x TILE tile of the trailing lower
+//      triangle (tile row >= tile column, rows and columns >= pe), which
+//      stages its two NB-wide strips of the panel in shared memory, forms
+//      the product in f32 FFMA with 4 x 4 outputs a thread and subtracts it
+//      from W once (diagonal tiles write i >= k only); then blocks of rows
+//      of the right-hand side, Y[pe:] -= L[pe:, p0:pe] Y[p0:pe].
+//   4. global_back: one block, L^T x = Y by 32-row blocks from the bottom,
+//      x in shared memory: a warp's shuffle chain a column on the block's
+//      diagonal tile (solve_rhs's back step), then every thread subtracts
+//      the block's solution from a row above.
+//   What bounds it on this card: latency, at every size the port meets.
+//   The factor's FMAs (n^3 / 6, 0.6 G at n = 1536) would take 0.018 ms at
+//   the f32 rate and W (9.4 MB at n = 1536) stays in L2; what costs is
+//   the chain of 2n / NB dependent launches, each an L2 round trip or two
+//   and ~1 us of gap, the NB-step chain of the diagonal block inside every
+//   panel launch, and the back-substitution's n / 32 steps on one SM
+//   (PERF.md has the split).  The design spreads the update over the SMs
+//   and pays a launch and a redundant diagonal factor a panel for it.  NB
+//   = 32 and TILE = 32 are measured (scripts/compare_parent_kernels.py
+//   --variants): NB = 16 doubles the launches, NB = 64 more than doubles
+//   the diagonal chain's cost a panel, TILE = 64 is up to 2% slower at
+//   n <= 576 and no faster at 1536.  No tensor cores here
+//   either (TF32, see above), and no grid barrier, cooperative launch,
+//   cluster or atomic ticket: look-ahead (panel p + 1 during update p) is
+//   later work.
 //
 // * simple (K5): one pivot and one rank-1 update at a time, as the TPU
 //   kernel does, with ONE block barrier per pivot, 1024 threads.  The
@@ -94,7 +133,6 @@
 namespace {
 
 constexpr int THREADS = 512;  // the blocked variant
-constexpr int THREADS_GLOBAL = 1024;  // its global path
 constexpr int PB = 16;        // panel width of the blocked variant
 constexpr int RT = 16;        // rows a lane takes in a trailing-update job
 static_assert(PB % RT == 0 && PB <= 32, "the next diagonal block is whole jobs of one column block");
@@ -102,6 +140,14 @@ constexpr int K5_WARPS = 32;  // the simple variant: 1024 threads
 constexpr int MAX_ROWS = 11;  // row blocks of a lane in K5: n <= 352
 constexpr int REG_ROWS = 4;   // up to here (n <= 128) K5's entries live in registers
 constexpr unsigned FULL = 0xffffffffu;
+// the blocked variant's global path
+constexpr int NB = 32;          // panel width
+constexpr int TILE = 32;        // trailing-update tile, TILE x TILE, 4 x 4 outputs a thread
+constexpr int PANEL_ROWS = 64;  // rows below the diagonal block a panel block solves
+constexpr int BACK_THREADS = 1024;
+constexpr int UPDATE_THREADS = (TILE / 4) * (TILE / 4);
+static_assert(NB % 16 == 0 && NB <= 64, "a panel is whole float4 quads, at most two rows a lane");
+static_assert(TILE % 4 == 0 && UPDATE_THREADS <= 1024 && PANEL_ROWS % 32 == 0, "block shapes");
 
 __device__ __forceinline__ int tri(int i, int k) { return i * (i + 1) / 2 + k; }
 
@@ -120,14 +166,6 @@ __host__ __device__ __forceinline__ int k4_ld(int n) {
 __host__ __device__ __forceinline__ size_t shared_floats(bool blocked, int n, int m) {
   return (blocked ? (size_t)PB * k4_ld(n) + PB * PB + PB : 0) + (size_t)n * (n + 1) / 2 +
          (size_t)n * m;
-}
-
-// K4's global path keeps in shared memory, ahead of the right-hand sides,
-// Pt, Dt and dinv, or, while A is read, one 32 x 33 transpose tile a warp
-__host__ __device__ __forceinline__ size_t global_front_floats(int n) {
-  const size_t panel = (size_t)PB * k4_ld(n) + PB * PB + PB;
-  const size_t tiles = (size_t)(THREADS_GLOBAL / 32) * 32 * 33;
-  return panel > tiles ? panel : tiles;
 }
 
 // Both substitutions for one right-hand side x (n) in shared memory, where
@@ -283,19 +321,15 @@ __device__ __forceinline__ void k4_diagonal(float* L, float* Dt, float* dinv, in
 // the trailing triangle takes the panel's rank-PB update while warp 0
 // updates and factors the next diagonal block (look-ahead): that block's
 // update is exactly the first PB / RT jobs, which no other warp takes.
-//
-// T threads; GL: L is the global workspace Lg (the global path), else it
-// follows dinv in shared memory.
-template <int T, bool GL>
-__device__ __forceinline__ void k4_factor(float* Lg, int n) {
+__device__ __forceinline__ void k4_factor(int n) {
   extern __shared__ float4 k4_smem[];
   float* Pt = reinterpret_cast<float*>(k4_smem);
   float* Dt = Pt + PB * k4_ld(n);
   float* dinv = Dt + PB * PB;
-  float* L = GL ? Lg : dinv + PB;
+  float* L = dinv + PB;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  constexpr int NW = T / 32;
+  constexpr int T = THREADS, NW = T / 32;
   const int ld = k4_ld(n);
   if (warp == 0) k4_diagonal(L, Dt, dinv, 0, n);
   __syncthreads();
@@ -395,7 +429,7 @@ spd_blocked_kernel(const float* __restrict__ A, const float* __restrict__ B,
   for (int e = tid; e < n * m; e += THREADS) x[e] = B[e];
   __syncthreads();
 
-  k4_factor<THREADS, false>(nullptr, n);
+  k4_factor(n);
 
   const auto lo = [](int i, int j) { return tri(i, j); };
   if (m == 1)
@@ -404,53 +438,381 @@ spd_blocked_kernel(const float* __restrict__ A, const float* __restrict__ B,
     solve_block(L, lo, x, X, n, m, THREADS);
 }
 
-// K4's global path, for systems whose packed factor does not fit one
-// block's shared memory (n > 322 at m = 1): the same schedule, with the
-// packed lower factor in the global workspace Lg (n(n+1)/2 floats; 4.7 MB
-// at n = 1536, inside the 50 MB L2) and Pt, Dt, dinv and the right-hand
-// sides in shared memory.  A's upper triangle reaches Lg by 32x32 tiles
-// through shared memory (one a warp, in the space Pt takes later), read
-// along A's rows and written along Lg's, both coalesced.  One block of
-// THREADS_GLOBAL threads: the trailing update, n^3/6 FMAs at most, runs
-// on one SM and reads and writes the trailing triangle through L2 once a
-// panel.
-__global__ void __launch_bounds__(THREADS_GLOBAL)
-spd_blocked_global_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                          float* __restrict__ X, float* Lg, int n, int m) {
-  extern __shared__ float4 k4_smem[];
-  constexpr int NW = THREADS_GLOBAL / 32;
-  float* smem = reinterpret_cast<float*>(k4_smem);
-  float* x = smem + global_front_floats(n);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+// ---- K4's global path (the note at the head of the file)
 
-  float* tile = smem + warp * 32 * 33;
-  const int nb = (n + 31) / 32;
-  for (int tr = 0, t = 0; tr < nb; ++tr) {
-    for (int tc = tr; tc < nb; ++tc, ++t) {
-      if (t % NW != warp) continue;
-      for (int rr = 0; rr < 32; ++rr) {
-        const int r = 32 * tr + rr, c = 32 * tc + lane;
-        tile[rr * 33 + lane] = (r < n && c < n) ? A[(size_t)r * n + c] : 0.0f;
+// W's leading dimension: rows start on 16 bytes, for the float4 reads of a
+// panel row
+__host__ __device__ __forceinline__ int global_ld(int n) { return (n + 3) / 4 * 4; }
+
+__host__ __device__ __forceinline__ int global_panels(int n) { return (n + NB - 1) / NB; }
+
+// the workspace in floats: W (n x ld), Dg (NB x NB), Y (n x m)
+__host__ __forceinline__ size_t global_work_floats(int n, int m) {
+  return (size_t)n * global_ld(n) + NB * NB + (size_t)n * m;
+}
+
+// global_back's shared memory in floats: two 32 x 33 tiles and x (n x m)
+__host__ __forceinline__ size_t global_back_floats(int n, int m) {
+  return 2 * 32 * 33 + (size_t)n * m;
+}
+
+// tiles of the trailing update a side, rows and columns pe .. n-1
+__host__ __device__ __forceinline__ int global_tiles(int n, int pe) {
+  return (n - pe + TILE - 1) / TILE;
+}
+
+// the row r of a lower triangle of blocks, numbered row by row, that holds
+// block b: r (r + 1) / 2 <= b < (r + 1) (r + 2) / 2
+__device__ __forceinline__ int tri_row(int b) {
+  int r = (int)((sqrtf(8.0f * b + 1.0f) - 1.0f) * 0.5f);
+  while (r * (r + 1) / 2 > b) --r;
+  while ((r + 1) * (r + 2) / 2 <= b) ++r;
+  return r;
+}
+
+// W's lower triangle from A's upper, a 32 x 32 tile (tr >= tc) a block of
+// 256 threads: read along A's rows, written along W's, both coalesced;
+// B -> Y over all blocks
+__global__ void __launch_bounds__(256)
+global_load(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ W,
+            float* __restrict__ Y, int n, int m) {
+  __shared__ float tile[32][33];
+  const int ld = global_ld(n);
+  const int tr = tri_row(blockIdx.x), tc = blockIdx.x - tr * (tr + 1) / 2;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r = ty; r < 32; r += 8) {              // A[k][i], k = 32 tc + r
+    const int k = 32 * tc + r, i = 32 * tr + tx;
+    tile[r][tx] = (k < n && i < n) ? A[(size_t)k * n + i] : 0.0f;
+  }
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8) {              // W[i][k], i = 32 tr + r
+    const int i = 32 * tr + r, k = 32 * tc + tx;
+    if (i < n && k <= i) W[(size_t)i * ld + k] = tile[tx][r];
+  }
+  const size_t nm = (size_t)n * m;
+  for (size_t e = (size_t)blockIdx.x * 256 + threadIdx.x; e < nm; e += (size_t)gridDim.x * 256)
+    Y[e] = B[e];
+}
+
+// The panel's diagonal block, staged in Ds (NB x (NB + 1), lower triangle,
+// zero elsewhere), factored in one warp: lane r holds rows r + 32 q
+// (q < QR), their entries left of the diagonal in a[q][] and their
+// diagonal entries in dg[q].  A step j shuffles the pivot, every lane takes
+// inv = rsqrt(d) itself and scales its own l_rj = a_rj inv, the lanes below
+// write column j into row j of Dt (Dt[j][k] = L_kj) and read it back as
+// float4 broadcasts for their update a_rk -= l_rj L_kj, j < k < r.  Dt ends
+// as the factor transposed, L_jj on its diagonal, zero below it, rows past
+// w the identity; dinv holds the pivots' 1/sqrt and rdiag
+// 1 / max(L_jj, 1e-12).  A step is one basic block with no predicate on
+// its FMAs, so that the next step's shuffle and rsqrt overlap this one's
+// round trip through Dt.
+__device__ __forceinline__ void global_diagonal(const float* Ds, int w, float* Dt, float* dinv,
+                                                float* rdiag) {
+  constexpr int QR = (NB + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  float a[QR][NB], dg[QR], lrr[QR];
+#pragma unroll
+  for (int q = 0; q < QR; ++q) {
+    const int r = lane + 32 * q;
+    const float* row = Ds + min(r, NB - 1) * (NB + 1);
+#pragma unroll
+    for (int c = 0; c < NB; ++c) a[q][c] = (r < w && c < r) ? row[c] : 0.0f;
+    dg[q] = r < w ? row[min(r, NB - 1)] : 1.0f;
+    lrr[q] = 1.0f;
+  }
+  // no branch a step: past w the padded rows (zero, pivot 1) leave the
+  // factor as it is and make the identity; the update runs on every lane,
+  // and on the lanes at or above the diagonal only touches entries that
+  // are never read
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float d = __shfl_sync(FULL, dg[j / 32], j % 32);
+    const float inv = rsqrtf(fmaxf(d, 1e-12f));
+    float li[QR];                                   // L_rj for r > j
+#pragma unroll
+    for (int q = 0; q < QR; ++q) {
+      const int r = lane + 32 * q;
+      li[q] = a[q][j] * inv;
+      if (r == j) lrr[q] = d * inv;
+      if (r > j) {
+        dg[q] = fmaf(-li[q], li[q], dg[q]);
+        if (r < NB) Dt[j * NB + r] = li[q];
       }
-      __syncwarp();
-      for (int cc = 0; cc < 32; ++cc) {
-        const int c = 32 * tc + cc, r = 32 * tr + lane;
-        if (c < n && r <= c) Lg[tri(c, r)] = tile[lane * 33 + cc];
+    }
+    __syncwarp();
+    const float4* dj = reinterpret_cast<const float4*>(Dt + j * NB);
+#pragma unroll
+    for (int t = (j + 1) / 4; t < NB / 4; ++t) {
+      const float4 v = dj[t];
+      const float vt[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int q = 0; q < QR; ++q)
+          if (4 * t + e > j) a[q][4 * t + e] = fmaf(-li[q], vt[e], a[q][4 * t + e]);
       }
-      __syncwarp();
+    }
+    if (lane == 0) dinv[j] = inv;
+  }
+#pragma unroll
+  for (int q = 0; q < QR; ++q) {
+    const int r = lane + 32 * q;
+    if (r < NB) {
+      Dt[r * NB + r] = lrr[q];
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        if (c < r) Dt[r * NB + c] = 0.0f;
+      rdiag[r] = 1.0f / fmaxf(lrr[q], 1e-12f);
     }
   }
-  for (int e = tid; e < n * m; e += THREADS_GLOBAL) x[e] = B[e];
+}
+
+// Panel p0: block 0 the diagonal block's store and the forward step of
+// the right-hand sides, block b > 0 the PANEL_ROWS rows from
+// pe + (b - 1) PANEL_ROWS, a row a thread, loaded before the diagonal
+// block is factored.
+__global__ void __launch_bounds__(PANEL_ROWS)
+global_panel(float* __restrict__ W, float* __restrict__ Dg, float* __restrict__ Y,
+             int n, int m, int p0) {
+  constexpr int QR = (NB + 31) / 32;
+  __shared__ __align__(16) float Dt[NB * NB];
+  __shared__ float Ds[NB * (NB + 1)], dinv[NB], rdiag[NB];
+  const int ld = global_ld(n), w = min(NB, n - p0), pe = p0 + w;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // this thread's row below the block (the panel is full then: w == NB)
+  const int i = pe + ((int)blockIdx.x - 1) * PANEL_ROWS + tid;
+  const bool has_row = blockIdx.x > 0 && i < n;
+  float a[NB];
+  float4* row = reinterpret_cast<float4*>(W + (size_t)(has_row ? i : p0) * ld + p0);
+  if (has_row) {
+#pragma unroll
+    for (int t = 0; t < NB / 4; ++t) {
+      const float4 v = row[t];
+      a[4 * t] = v.x, a[4 * t + 1] = v.y, a[4 * t + 2] = v.z, a[4 * t + 3] = v.w;
+    }
+  }
+  for (int e = tid; e < NB * NB; e += PANEL_ROWS) {
+    const int r = e / NB, c = e % NB;
+    Ds[r * (NB + 1) + c] = (r < w && c <= r) ? W[(size_t)(p0 + r) * ld + p0 + c] : 0.0f;
+  }
   __syncthreads();
+  if (tid < 32) global_diagonal(Ds, w, Dt, dinv, rdiag);
+  __syncthreads();
+  if (blockIdx.x == 0) {
+    // the factored block, lower triangle: into W when no other block of
+    // this launch reads W's copy, else into Dg
+    const bool alone = gridDim.x == 1;
+    for (int e = tid; e < w * w; e += PANEL_ROWS) {
+      const int j = e / w, k = e % w;               // L_kj, k >= j
+      if (k >= j) {
+        if (alone)
+          W[(size_t)(p0 + k) * ld + p0 + j] = Dt[j * NB + k];
+        else
+          Dg[j * NB + k] = Dt[j * NB + k];
+      }
+    }
+    // Y[p0:pe] <- L_pp^-1 Y[p0:pe], a warp a column: lane r holds rows
+    // r + 32 q; a step j broadcasts x_j = y_j / L_jj and the rows below
+    // subtract L_rj x_j
+    for (int c = tid >> 5; c < m; c += PANEL_ROWS / 32) {
+      float y[QR];
+#pragma unroll
+      for (int q = 0; q < QR; ++q) {
+        const int r = lane + 32 * q;
+        y[q] = r < w ? Y[(size_t)(p0 + r) * m + c] : 0.0f;
+      }
+      for (int j = 0; j < w; ++j) {
+        float yj = y[0];
+#pragma unroll
+        for (int q = 1; q < QR; ++q)
+          if (j >= 32 * q) yj = y[q];
+        const float xj = __shfl_sync(FULL, yj, j % 32) * rdiag[j];
+#pragma unroll
+        for (int q = 0; q < QR; ++q) {
+          const int r = lane + 32 * q;
+          if (r == j) y[q] = xj;
+          if (r > j && r < NB) y[q] = fmaf(-Dt[j * NB + r], xj, y[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < QR; ++q) {
+        const int r = lane + 32 * q;
+        if (r < w) Y[(size_t)(p0 + r) * m + c] = y[q];
+      }
+    }
+    return;
+  }
+  if (!has_row) return;
+  // the row solved against the block
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    a[j] *= dinv[j];
+    const float4* dj = reinterpret_cast<const float4*>(Dt + j * NB);
+#pragma unroll
+    for (int q = (j + 1) / 4; q < NB / 4; ++q) {
+      const float4 v = dj[q];
+      const float vq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * q + e > j) a[4 * q + e] = fmaf(-a[j], vq[e], a[4 * q + e]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NB / 4; ++t)
+    row[t] = make_float4(a[4 * t], a[4 * t + 1], a[4 * t + 2], a[4 * t + 3]);
+}
 
-  k4_factor<THREADS_GLOBAL, true>(Lg, n);
+// The trailing update after panel p0 (full: pe = p0 + NB < n).  Blocks
+// 0 .. tiles-1: tile (ti, tk), ti >= tk, of TILE x TILE entries at rows
+// pe + TILE ti and columns pe + TILE tk: both strips of the panel staged
+// transposed in shared memory (As[c][r] = L[i0 + r][p0 + c]), 4 x 4 sums a
+// thread accumulated from zero over the panel's columns in order, then
+// W -= sum once.  The blocks after them: UPDATE_THREADS rows of the
+// right-hand sides each, a row a thread; the first also places the
+// panel's diagonal block from Dg into W.
+__global__ void __launch_bounds__(UPDATE_THREADS)
+global_update(float* __restrict__ W, const float* __restrict__ Dg, float* __restrict__ Y,
+              int n, int m, int p0) {
+  constexpr int TS = TILE / 4, S = TILE + 4;        // S: a strip row, float4-aligned
+  __shared__ __align__(16) float As[NB * S];
+  __shared__ __align__(16) float Bs[NB * S];
+  const int ld = global_ld(n), pe = p0 + NB, nt = global_tiles(n, pe);
+  const int tiles = nt * (nt + 1) / 2, tid = threadIdx.x;
+  if ((int)blockIdx.x >= tiles) {
+    const int rb = blockIdx.x - tiles;
+    if (rb == 0) {
+      for (int e = tid; e < NB * NB; e += UPDATE_THREADS) {
+        const int j = e / NB, k = e % NB;
+        if (k >= j) W[(size_t)(p0 + k) * ld + p0 + j] = Dg[e];
+      }
+    }
+    const int i = pe + rb * UPDATE_THREADS + tid;
+    if (i >= n) return;
+    const float4* row = reinterpret_cast<const float4*>(W + (size_t)i * ld + p0);
+    float l[NB];
+#pragma unroll
+    for (int t = 0; t < NB / 4; ++t) {
+      const float4 v = row[t];
+      l[4 * t] = v.x, l[4 * t + 1] = v.y, l[4 * t + 2] = v.z, l[4 * t + 3] = v.w;
+    }
+    for (int c = 0; c < m; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) acc = fmaf(l[j], Y[(size_t)(p0 + j) * m + c], acc);
+      Y[(size_t)i * m + c] -= acc;
+    }
+    return;
+  }
+  const int ti = tri_row(blockIdx.x), tk = blockIdx.x - ti * (ti + 1) / 2;
+  const int i0 = pe + TILE * ti, k0 = pe + TILE * tk;
+  for (int e = tid; e < TILE * NB / 4; e += UPDATE_THREADS) {
+    const int r = e / (NB / 4), q = e % (NB / 4);
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 va = i0 + r < n ? *reinterpret_cast<const float4*>(
+                                       W + (size_t)(i0 + r) * ld + p0 + 4 * q) : z;
+    const float4 vb = k0 + r < n ? *reinterpret_cast<const float4*>(
+                                       W + (size_t)(k0 + r) * ld + p0 + 4 * q) : z;
+    As[(4 * q) * S + r] = va.x, As[(4 * q + 1) * S + r] = va.y;
+    As[(4 * q + 2) * S + r] = va.z, As[(4 * q + 3) * S + r] = va.w;
+    Bs[(4 * q) * S + r] = vb.x, Bs[(4 * q + 1) * S + r] = vb.y;
+    Bs[(4 * q + 2) * S + r] = vb.z, Bs[(4 * q + 3) * S + r] = vb.w;
+  }
+  __syncthreads();
+  const int ty = tid / TS, tx = tid % TS;
+  float acc[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[s][t] = 0.0f;
+#pragma unroll 8
+  for (int c = 0; c < NB; ++c) {
+    const float4 av = *reinterpret_cast<const float4*>(As + c * S + 4 * ty);
+    const float4 bv = *reinterpret_cast<const float4*>(Bs + c * S + 4 * tx);
+    const float ar[4] = {av.x, av.y, av.z, av.w}, br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[s][t] = fmaf(ar[s], br[t], acc[s][t]);
+  }
+  const int k = k0 + 4 * tx;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int i = i0 + 4 * ty + s;
+    if (i >= n) break;
+    float* wr = W + (size_t)i * ld + k;
+    if (ti != tk) {                                 // left of the diagonal tile: whole quads
+      float4 v = *reinterpret_cast<float4*>(wr);
+      v.x -= acc[s][0], v.y -= acc[s][1], v.z -= acc[s][2], v.w -= acc[s][3];
+      *reinterpret_cast<float4*>(wr) = v;
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (k + t <= i) wr[t] -= acc[s][t];
+    }
+  }
+}
 
-  const auto lo = [](int i, int j) { return tri(i, j); };
-  if (m == 1)
-    solve_rhs(Lg, lo, x, X, n, THREADS_GLOBAL);
-  else
-    solve_block(Lg, lo, x, X, n, m, THREADS_GLOBAL);
+// the diagonal tile of the 32-row block at j0, W[j0 .. j0+jn) lower, into
+// t (32 x 33, zero elsewhere), by global_back's threads from `first` on
+__device__ __forceinline__ void back_tile(const float* W, int ld, int n, int j0, float* t,
+                                          int first) {
+  const int jn = min(32, n - j0);
+  for (int e = threadIdx.x - first; e < 32 * 32; e += BACK_THREADS - first) {
+    const int r = e / 32, c = e % 32;
+    t[r * 33 + c] = (r < jn && c <= r) ? W[(size_t)(j0 + r) * ld + j0 + c] : 0.0f;
+  }
+}
+
+// L^T x = Y, one block: x (n x m) in shared memory; 32-row blocks from the
+// bottom, each: a warp a column runs solve_rhs's back chain on the block's
+// diagonal tile (lane l holds row j0 + l divided by its pivot; a step is
+// one shuffle and one FMA), then every thread subtracts the block's
+// solution from a row above it, a dot product of up to 32 terms read
+// along W's rows.  The warps that run no chain load the next block's tile
+// meanwhile, into the other of two buffers: two block barriers a block.
+__global__ void __launch_bounds__(BACK_THREADS)
+global_back(const float* __restrict__ W, const float* __restrict__ Y, float* __restrict__ X,
+            int n, int m) {
+  extern __shared__ float back_smem[];
+  float* x = back_smem + 2 * 32 * 33;               // two tiles, then x (n x m)
+  const int ld = global_ld(n), tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nm = n * m, nb = (n + 31) / 32;
+  // the chains take warps 0 .. m-1; the others load tiles (all, if none is left)
+  const int loaders = m < BACK_THREADS / 32 ? 32 * m : 0;
+  for (int e = tid; e < nm; e += BACK_THREADS) x[e] = Y[e];
+  back_tile(W, ld, n, 32 * (nb - 1), back_smem + ((nb - 1) & 1) * 32 * 33, 0);
+  __syncthreads();
+  for (int a = nb - 1; a >= 0; --a) {
+    const int j0 = 32 * a, jn = min(32, n - j0);
+    const float* tile = back_smem + (a & 1) * 32 * 33;
+    if (a > 0 && tid >= loaders)
+      back_tile(W, ld, n, j0 - 32, back_smem + ((a - 1) & 1) * 32 * 33, loaders);
+    for (int c = warp; c < m; c += BACK_THREADS / 32) {
+      const bool in = lane < jn;
+      const float rd = in ? 1.0f / fmaxf(tile[lane * 33 + lane], 1e-12f) : 1.0f;
+      float z = in ? x[(j0 + lane) * m + c] * rd : 0.0f;
+      float u = (in && lane < jn - 1) ? tile[(jn - 1) * 33 + lane] * rd : 0.0f;
+      for (int jj = jn - 1; jj >= 0; --jj) {
+        const float un = (jj > 0 && lane < jj - 1) ? tile[(jj - 1) * 33 + lane] * rd : 0.0f;
+        z = fmaf(-u, __shfl_sync(FULL, z, jj), z);
+        u = un;
+      }
+      if (in) x[(j0 + lane) * m + c] = z;
+    }
+    if (a > 0 && loaders == 0)
+      back_tile(W, ld, n, j0 - 32, back_smem + ((a - 1) & 1) * 32 * 33, 0);
+    __syncthreads();
+    for (int e = tid; e < j0 * m; e += BACK_THREADS) {
+      const int r = e / m, c = e % m;
+      float dot = 0.0f;
+#pragma unroll 16   // 16 loads in flight a thread: 8 or 32 are slower on the H100
+      for (int jj = 0; jj < jn; ++jj)
+        dot = fmaf(W[(size_t)(j0 + jj) * ld + r], x[(j0 + jj) * m + c], dot);
+      x[e] -= dot;
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < nm; e += BACK_THREADS) X[e] = x[e];
 }
 
 // K5.  R = ceil(n / 32) row blocks a lane.  Thread (lane, warp) owns the
@@ -638,16 +1000,48 @@ extern "C" int mcptam_spd_solve(const float* A, const float* B, float* X,
                  : launch_simple_rows(A, B, X, n, m, stream);
 }
 
-// K4's global path: the same arguments and the workspace L, n(n+1)/2 f32
-// on the same device.  Returns a cudaError_t.
-extern "C" int mcptam_spd_solve_global(const float* A, const float* B, float* X, float* L,
-                                       int n, int m, cudaStream_t stream) {
-  if (n <= 0 || m <= 0) return cudaErrorInvalidValue;
+// K4's global path: the same arguments, a workspace of work_floats f32 on
+// the same device (at least n ld + NB^2 + n m, ld = n rounded up to 4:
+// mcptam_spd_global_plan) and the stream; enqueues its launches and
+// returns the first cudaError_t.
+extern "C" int mcptam_spd_solve_global(const float* A, const float* B, float* X, float* work,
+                                       int n, int m, size_t work_floats, cudaStream_t stream) {
+  if (n <= 0 || m <= 0 || work_floats < global_work_floats(n, m)) return cudaErrorInvalidValue;
   static int optin = 0;
-  const cudaError_t err = opt_in(spd_blocked_global_kernel, &optin);
+  cudaError_t err = opt_in(global_back, &optin);
   if (err != cudaSuccess) return err;
-  const size_t bytes = sizeof(float) * (global_front_floats(n) + (size_t)n * m);
-  if (bytes > (size_t)optin) return cudaErrorInvalidValue;
-  spd_blocked_global_kernel<<<1, THREADS_GLOBAL, bytes, stream>>>(A, B, X, L, n, m);
+  const size_t back = sizeof(float) * global_back_floats(n, m);
+  if (back > (size_t)optin) return cudaErrorInvalidValue;
+  float* W = work;
+  float* Dg = W + (size_t)n * global_ld(n);
+  float* Y = Dg + NB * NB;
+  const int nb = (n + 31) / 32;
+  global_load<<<nb * (nb + 1) / 2, 256, 0, stream>>>(A, B, W, Y, n, m);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  for (int p0 = 0; p0 < n; p0 += NB) {
+    const int pe = p0 + NB < n ? p0 + NB : n;
+    global_panel<<<1 + (n - pe + PANEL_ROWS - 1) / PANEL_ROWS, PANEL_ROWS, 0, stream>>>(
+        W, Dg, Y, n, m, p0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (pe < n) {
+      const int nt = global_tiles(n, pe);
+      const int rows = (n - pe + UPDATE_THREADS - 1) / UPDATE_THREADS;
+      global_update<<<nt * (nt + 1) / 2 + rows, UPDATE_THREADS, 0, stream>>>(W, Dg, Y, n, m, p0);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  global_back<<<1, BACK_THREADS, back, stream>>>(W, Y, X, n, m);
   return cudaGetLastError();
+}
+
+// The global path's plan for an (n, m) system: plan[0] NB, plan[1] TILE,
+// plan[2] the launches one solve enqueues, plan[3] the workspace in
+// floats, plan[4] global_back's shared bytes.  Returns 0.
+extern "C" int mcptam_spd_global_plan(int n, int m, long long* plan) {
+  plan[0] = NB;
+  plan[1] = TILE;
+  plan[2] = 2 * global_panels(n) + 1;
+  plan[3] = (long long)global_work_floats(n, m);
+  plan[4] = (long long)(sizeof(float) * global_back_floats(n, m));
+  return 0;
 }

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the window gather (K2's plain gather), the blocked SPD solve (K4)
-and the tracker's search against an earlier version of their CUDA
-sources, in one process on one GPU.
+"""Time the window gather (K2's plain gather), the blocked SPD solve (K4,
+shared and global path) and the tracker's search against an earlier
+version of their CUDA sources, in one process on one GPU.
 
     git archive <commit> mcptam_tpu_torch/csrc | tar -x -C _parent
     python3 scripts/compare_parent_kernels.py --parent-csrc _parent/mcptam_tpu_torch/csrc [--variants]
@@ -12,7 +12,11 @@ C entry points.  Both gathers must be bit-exact against the plain version
 at the tracker's former shape (K = 1000 windows of 35x35 f32) and the
 map-maker's largest call (4096 windows of 26x26 uint8); on random SPD
 matrices (condition number 1e4) at n = 96 and 288 both K4 versions must
-agree with the plain solve within chip_smoke.SPD_TOL.  The tracker's
+agree with the plain solve within chip_smoke.SPD_TOL, and so must both
+versions of K4's global path at chip_smoke.SPD_GLOBAL_SIZES, timed beside
+torch.linalg.cholesky + torch.cholesky_solve (the earlier one may take
+another workspace and arguments: one without ``mcptam_spd_global_plan``
+is called as the earlier one-block kernel was).  The tracker's
 search is timed on the coarse and fine calls of a tracked batch: the
 fused kernel (csrc/search.cu) against the earlier path, the window
 gather followed by the eager search (``search_patches_reference``).
@@ -23,13 +27,14 @@ MiniPatch's round trip against the path it replaced.
 ``--variants`` also builds the current sources with the search kernel's
 block size ``THREADS``, offset tile ``YW`` x ``XW`` and ``MIN_BLOCKS``
 (the blocks an SM must hold, which caps its registers) set to other
-values, K4's global path at ``THREADS_GLOBAL`` 512 and 1024, and the
+values, K4's global path with its panel width ``NB`` (16, 32, 64) and
+update tile ``TILE`` (32, 64) at chip_smoke.SPD_GLOBAL_SIZES, and the
 round trip (csrc/minipatch.cu, on chip_smoke's consecutive frame pair)
 with ``WARPS`` (candidates a block) and ``SEG`` (offsets of a row a lane
 takes at once) set to other values, checks each the same way as
 chip_smoke.py and times each, so that the choice in the sources is a
-measured one.  Prints the card and its power limit, and
-one JSON line of the times.
+measured one.  Prints the card and its power limit, and one JSON line
+of the times.
 """
 
 import argparse
@@ -46,11 +51,10 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402  (time_ms, random_spd, card_line, scene)
 
-# (THREADS, YW, XW, MIN_BLOCKS) of the search kernel; K4's global block sizes
+# (THREADS, YW, XW, MIN_BLOCKS) of the search kernel; (NB, TILE) of K4's global path
 SEARCH_VARIANTS = ((128, 3, 2, 8), (128, 3, 3, 8), (128, 2, 2, 8), (64, 3, 3, 16),
                    (256, 2, 2, 4), (128, 3, 2, 4))
-GLOBAL_THREADS = (512, 1024)
-GLOBAL_SIZES = (384, 1536)
+GLOBAL_VARIANTS = tuple((nb, t) for nb in (16, 32, 64) for t in (32, 64))
 # (WARPS, SEG) of the round-trip kernel
 MINIPATCH_VARIANTS = ((8, 7), (4, 7), (1, 7), (8, 3))
 
@@ -95,6 +99,10 @@ def build_libs(libs: dict, out_dir: str) -> dict:
                 fn.restype = ctypes.c_int
         lib.mcptam_error_string.argtypes = [ctypes.c_int]
         lib.mcptam_error_string.restype = ctypes.c_char_p
+        if getattr(lib, "mcptam_spd_global_plan", None) is None and hasattr(
+                lib, "mcptam_spd_solve_global"):  # one-block kernel: packed workspace
+            lib.mcptam_spd_solve_global.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+                ctypes.c_void_p]
         built[name] = lib
     return built
 
@@ -128,12 +136,22 @@ def lib_spd(lib, A, b):
 
 
 def lib_spd_global(lib, A, b):
+    """K4's global path of a built library: the launch sequence with its
+    plan's workspace, or, for a library without mcptam_spd_global_plan,
+    the earlier one-block kernel with its packed n(n+1)/2 workspace."""
     import torch
-    n = A.shape[0]
+    n, m = A.shape[0], b.shape[1]
     X = torch.empty_like(b)
-    work = torch.empty(n * (n + 1) // 2, dtype=torch.float32, device=A.device)
-    err = lib.mcptam_spd_solve_global(A.data_ptr(), b.data_ptr(), X.data_ptr(),
-                                      work.data_ptr(), n, b.shape[1], stream())
+    if getattr(lib, "mcptam_spd_global_plan", None) is None:
+        work = torch.empty(n * (n + 1) // 2, dtype=torch.float32, device=A.device)
+        err = lib.mcptam_spd_solve_global(A.data_ptr(), b.data_ptr(), X.data_ptr(),
+                                          work.data_ptr(), n, m, stream())
+    else:
+        plan = (ctypes.c_longlong * 5)()
+        lib.mcptam_spd_global_plan(n, m, ctypes.addressof(plan))
+        work = torch.empty(plan[3], dtype=torch.float32, device=A.device)
+        err = lib.mcptam_spd_solve_global(A.data_ptr(), b.data_ptr(), X.data_ptr(),
+                                          work.data_ptr(), n, m, plan[3], stream())
     if err:
         raise RuntimeError(f"spd_solve_global: CUDA error {err}")
     return X
@@ -242,15 +260,15 @@ def main() -> int:
     libs = {"earlier": read_sources(args.parent_csrc, ("common.cu", "gather.cu", "spd.cu"))}
     if args.variants:
         cur = read_sources(str(CSRC), ("common.cu", "search.cu", "spd.cu"))
+        for nb, t in GLOBAL_VARIANTS:
+            text = with_constant(with_constant(cur["spd.cu"], "NB", nb), "TILE", t)
+            libs[f"global_nb{nb}_t{t}"] = {"common.cu": cur["common.cu"], "spd.cu": text}
         for nt, yw, xw, mb in SEARCH_VARIANTS:
             text = with_constant(cur["search.cu"], "THREADS", nt)
             text = with_constant(with_constant(text, "YW", yw), "XW", xw)
             text = with_constant(text, "MIN_BLOCKS", mb)
             libs[f"search_t{nt}_{yw}x{xw}_b{mb}"] = {"common.cu": cur["common.cu"],
                                                      "search.cu": text}
-        for nt in GLOBAL_THREADS:
-            libs[f"global_t{nt}"] = {"common.cu": cur["common.cu"], "spd.cu": with_constant(
-                cur["spd.cu"], "THREADS_GLOBAL", nt)}
         mp = read_sources(str(CSRC), ("minipatch.cu",))["minipatch.cu"]
         for warps, seg in MINIPATCH_VARIANTS:
             libs[f"minipatch_w{warps}_s{seg}"] = {"common.cu": cur["common.cu"], "minipatch.cu":
@@ -262,7 +280,51 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     gen = torch.Generator().manual_seed(0)
-    out = {"card": card, "gather": {}, "spd": {}, "search": {}, "variants": {}}
+    out = {"card": card, "gather": {}, "spd": {}, "spd_global": {}, "search": {},
+           "variants": {}}
+
+    for n in (96, 288):
+        A = cs.random_spd(n, gen, dev)
+        b = torch.randn(n, 1, generator=gen).to(dev)
+        x_ref = spd_solve_reference(A, b)
+        solvers = {"current": lambda: spd_solve_kernel(A, b, blocked=True),
+                   "earlier": lambda: lib_spd(old, A, b)}
+        for label, fn in solvers.items():
+            x = fn()
+            rel = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+            if not rel <= cs.SPD_TOL:
+                raise AssertionError(f"K4 {label} n={n}: relative error {rel}")
+        k4_old, k4_new = in_turns(solvers["earlier"], solvers["current"])
+        out["spd"][n] = {"k4_earlier_ms": k4_old, "k4_ms": k4_new}
+        print(f"K4 spd_solve_blocked n={n} m=1: {out['spd'][n]} ({card})")
+
+    # K4's global path: the earlier version against the current, in turns,
+    # beside cholesky + cholesky_solve; then the current sources' variants
+    for n in cs.SPD_GLOBAL_SIZES:
+        A = cs.random_spd(n, gen, dev)
+        b = torch.randn(n, 1, generator=gen).to(dev)
+        x_ref = spd_solve_reference(A, b)
+        solvers = {"current": lambda: spd_solve_kernel(A, b),
+                   "earlier": lambda: lib_spd_global(old, A, b)}
+        for label, fn in solvers.items():
+            x = fn()
+            rel = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+            if not rel <= cs.SPD_TOL:
+                raise AssertionError(f"K4 global {label} n={n}: relative error {rel}")
+        g_old, g_new = in_turns(solvers["earlier"], solvers["current"])
+        chol = cs.time_ms(lambda: torch.cholesky_solve(b, torch.linalg.cholesky(A)))
+        out["spd_global"][n] = {"earlier_ms": g_old, "ms": g_new, "cholesky_solve_ms": chol}
+        print(f"K4 spd_solve_blocked_global n={n} m=1: {out['spd_global'][n]} ({card})")
+        if args.variants:
+            times = {}
+            for v in (v for v in built if v.startswith("global")):
+                x = lib_spd_global(built[v], A, b)
+                rel = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+                if not rel <= cs.SPD_TOL:
+                    raise AssertionError(f"K4 global {v} n={n}: relative error {rel}")
+                times[v] = cs.time_ms(lambda: lib_spd_global(built[v], A, b))
+            out["variants"][f"spd_global n={n}"] = times
+            print(f"K4 global path NB x TILE n={n}: {times} ({card})")
 
     # the scene: the benchmark rig, its ground-truth map and a batch of frames
     cams, cfb = make_rig(cs.C, cs.H, cs.W, spread_deg=25.0, device=dev)
@@ -292,21 +354,6 @@ def main() -> int:
                               "plain_ms": cs.time_ms(lambda: gather_windows_reference(
                                   pl, rows, cols, G))}
         print(f"K2 gather_windows {key}: {out['gather'][key]} ({card})")
-
-    for n in (96, 288):
-        A = cs.random_spd(n, gen, dev)
-        b = torch.randn(n, 1, generator=gen).to(dev)
-        x_ref = spd_solve_reference(A, b)
-        solvers = {"current": lambda: spd_solve_kernel(A, b, blocked=True),
-                   "earlier": lambda: lib_spd(old, A, b)}
-        for label, fn in solvers.items():
-            x = fn()
-            rel = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
-            if not rel <= cs.SPD_TOL:
-                raise AssertionError(f"K4 {label} n={n}: relative error {rel}")
-        k4_old, k4_new = in_turns(solvers["earlier"], solvers["current"])
-        out["spd"][n] = {"k4_earlier_ms": k4_old, "k4_ms": k4_new}
-        print(f"K4 spd_solve_blocked n={n} m=1: {out['spd'][n]} ({card})")
 
     rec = System(cams, cfb, make_sbi_cams(cams, cs.H, cs.W), cs.H, cs.W,
                  tcfg=TrackerConfig(), max_points=cs.MAX_POINTS, max_mkfs=cs.MAX_MKFS,
@@ -344,19 +391,6 @@ def main() -> int:
                 times[v] = cs.time_ms(lambda: stability_search(*st))
         out["variants"]["stability_filter"] = times
         print(f"K8 stability_filter variants (ms): {times} ({card})")
-        for n in GLOBAL_SIZES:
-            A = cs.random_spd(n, gen, dev)
-            b = torch.randn(n, 1, generator=gen).to(dev)
-            x_ref = spd_solve_reference(A, b)
-            times = {}
-            for v in (v for v in built if v.startswith("global")):
-                x = lib_spd_global(built[v], A, b)
-                rel = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
-                if not rel <= cs.SPD_TOL:
-                    raise AssertionError(f"K4 global {v} n={n}: relative error {rel}")
-                times[v] = cs.time_ms(lambda: lib_spd_global(built[v], A, b), 5)
-            out["variants"][f"spd_global n={n}"] = times
-            print(f"K4 global path block sizes n={n}: {times} ({card})")
     print(json.dumps(out))
     return 0
 

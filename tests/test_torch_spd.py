@@ -15,9 +15,14 @@ rows, the rows below solved row by row, the trailing update in jobs of
 RT rows x 32 columns with warp 0 taking the next diagonal block's, the
 substitutions by 32-row blocks).  Each checks that
 every step (K5) or panel (K4) updates each trailing entry exactly once;
-K4's also at n = 288, the capacity size, against a float64 solve, and
-over the global path's 32 warps at n = 324 and 576, beyond the shared
-range, against a float64 solve and the JAX solve (1e-3, kappa 1e4).  The
+K4's also at n = 288, the capacity size, against a float64 solve.  K4's
+global path beyond the shared range is a sequence of launches, emulated
+launch by launch: the load, per panel of NB columns the redundant
+diagonal factor, the rows below solved, the forward step and the
+trailing update in TILE x TILE tiles with the right-hand side's rows,
+then the back-substitution by 32-row blocks; held at n = 324, 331, 384
+and 576 (and m = 3) to a float64 solve and the JAX solve (1e-3, kappa
+1e4), its tiles checked to cover every trailing lower entry once.  The
 wrappers' routing (shared K4, its global path, K5's range) is checked
 without a card.
 
@@ -41,8 +46,9 @@ from mcptam_tpu.core.spd import _spd_solve_pallas, spd_solve as j_spd_solve
 from mcptam_tpu_torch.ba import bundle as pbundle
 from mcptam_tpu_torch.ba.problems import build
 from mcptam_tpu_torch.core.spd import (
-    K4_GLOBAL_THREADS, K4_PB, MAX_SHARED_BYTES, route, shared_bytes, shared_bytes_global,
-    spd_solve, spd_solve_reference,
+    K4_GLOBAL_NB, K4_GLOBAL_TILE, K4_PB, MAX_SHARED_BYTES, global_launches, global_ld,
+    global_work_floats, route, shared_bytes, shared_bytes_global, spd_solve,
+    spd_solve_reference,
 )
 
 
@@ -229,12 +235,10 @@ def _k4_jobs(nt, warps=K4_WARPS):
     return jobs
 
 
-def _k4_emulate(A, b, warps=K4_WARPS):
+def _k4_emulate(A, b):
     """spd_blocked_kernel's factor and substitutions, thread by thread
     (numpy over lanes, rows and jobs), m = 1, in f32 with fmaf where the
-    kernel has it.  ``warps``: the kernel's warps (K4_WARPS for the shared
-    path, K4_GLOBAL_THREADS / 32 for spd_blocked_global_kernel, which runs
-    the same schedule on a factor in global memory)."""
+    kernel has it."""
     f32 = np.float32
     A = np.asarray(A, f32)
     nn, PB = A.shape[0], K4_PB
@@ -289,7 +293,7 @@ def _k4_emulate(A, b, warps=K4_WARPS):
         # 3. the trailing update, job by job in the kernel's order
         nt = nn - pe
         touched = np.zeros(L.size, int)
-        for bk, ir0 in _k4_jobs(nt, warps):
+        for bk, ir0 in _k4_jobs(nt):
             kr = 32 * bk + lanes                                  # (32,)
             ir = ir0 + np.arange(K4_RT)                           # (RT,)
             acc = np.zeros((K4_RT, 32), f32)
@@ -311,35 +315,56 @@ def _solve_rhs(lo, b):
     divided by its pivot and its entries multiplied by the reciprocal; the
     block's solution then reaches the other rows as one 32-term dot
     product each, summed in order."""
-    f32 = np.float32
-    x = np.asarray(b, f32).reshape(-1).copy()
+    x = np.asarray(b, np.float32).reshape(-1).copy()
+    return _back_rhs(lo, _forward_rhs(lo, x))[:, None]
+
+
+def _rhs_blocks(nn):
+    return [np.arange(j0, min(j0 + 32, nn)) for j0 in range(0, nn, 32)]
+
+
+def _dots(x, rows, cols, entry):
+    """Each row's dot product with x[cols], summed in order from zero."""
+    s = np.zeros(rows.size, np.float32)
+    for j in cols:
+        s = _fma(entry(rows, j), x[j], s)
+    return s
+
+
+def _recip_pivots(lo, nn):
+    return np.float32(1) / np.maximum(np.array([lo(i, i) for i in range(nn)], np.float32),
+                                      np.float32(1e-12))
+
+
+def _forward_rhs(lo, x):
+    """solve_rhs's forward half on one right-hand side x (n,), in place."""
     nn = x.size
-    rd = f32(1) / np.maximum(np.array([lo(i, i) for i in range(nn)], f32), f32(1e-12))
-    blocks = [np.arange(j0, min(j0 + 32, nn)) for j0 in range(0, nn, 32)]
-
-    def dots(rows, cols, entry):
-        s = np.zeros(rows.size, f32)
-        for j in cols:
-            s = _fma(entry(rows, j), x[j], s)
-        return s
-
-    for blk in blocks:
+    rd = _recip_pivots(lo, nn)
+    for blk in _rhs_blocks(nn):
         z = x[blk] * rd[blk]
         for t, j in enumerate(blk):
             later = blk[t + 1:]
             z[t + 1:] = _fma(-(lo(later, j) * rd[later]), z[t], z[t + 1:])
         x[blk] = z
         rows = np.arange(blk[-1] + 1, nn)
-        x[rows] = x[rows] - dots(rows, blk, lo)
-    for blk in blocks[::-1]:
+        x[rows] = x[rows] - _dots(x, rows, blk, lo)
+    return x
+
+
+def _back_rhs(lo, x):
+    """solve_rhs's back half (and global_back's) on one right-hand side x
+    (n,), in place: L^T x = x by 32-row blocks from the bottom."""
+    nn = x.size
+    rd = _recip_pivots(lo, nn)
+    for blk in _rhs_blocks(nn)[::-1]:
         z = x[blk] * rd[blk]
         for t in range(blk.size - 1, -1, -1):
             j, earlier = blk[t], blk[:t]
             z[:t] = _fma(-(lo(j, earlier) * rd[earlier]), z[t], z[:t])
         x[blk] = z
         rows = np.arange(blk[0])
-        x[rows] = x[rows] - dots(rows, blk, lambda r, j: lo(j, r))
-    return x[:, None]
+        x[rows] = x[rows] - _dots(x, rows, blk, lambda r, j: lo(j, r))
+    return x
 
 
 @pytest.mark.parametrize("nn", [5, 40, 96, 130])
@@ -388,30 +413,203 @@ def _spd_kappa(nn: int, seed: int):
     return 0.5 * (A + A.T), rng.standard_normal((nn, 1)).astype(np.float32)
 
 
-@pytest.mark.parametrize("nn", [324, 576])
-def test_k4_global_schedule_matches_jax(nn):
-    """K4's global path (spd_blocked_global_kernel: K4's panels over
-    K4_GLOBAL_THREADS / 32 warps, the factor in global memory) beyond the
-    shared range: within SPD_TOL (1e-3) of a float64 solve and of the JAX
-    spd_solve; every panel updates each trailing entry exactly once."""
-    assert route(nn, 1) == "spd_solve_blocked_global"
-    A, B = _spd_kappa(nn, nn)
-    x = _k4_emulate(A, B, warps=K4_GLOBAL_THREADS // 32)
+def _source_constant(name):
+    """An ``constexpr int`` of csrc/spd.cu."""
+    import re
+    from pathlib import Path
+
+    import mcptam_tpu_torch.csrc as csrc
+
+    text = (Path(csrc.__file__).parent / "spd.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_k4_global_constants_match_the_source():
+    """The wrapper's and the emulation's NB and TILE are the kernel's."""
+    assert (K4_GLOBAL_NB, K4_GLOBAL_TILE) == (_source_constant("NB"), _source_constant("TILE"))
+
+
+def _tri_row(b):
+    """csrc/spd.cu ``tri_row``: the row r of a lower triangle of blocks,
+    numbered row by row, that holds block b (the kernel's float square
+    root and its corrections)."""
+    r = int((np.sqrt(np.float32(8 * b + 1), dtype=np.float32) - 1) * np.float32(0.5))
+    while r * (r + 1) // 2 > b:
+        r -= 1
+    while (r + 1) * (r + 2) // 2 <= b:
+        r += 1
+    return r
+
+
+def _global_tiles(nn, pe):
+    """The trailing update's tiles (ti, tk) after a panel ending at pe, as
+    global_update's blocks decode their index."""
+    nt = -(-(nn - pe) // K4_GLOBAL_TILE)
+    out = []
+    for b in range(nt * (nt + 1) // 2):
+        ti = _tri_row(b)
+        out.append((ti, b - ti * (ti + 1) // 2))
+    return out
+
+
+def _tile_mask(nn, pe, ti, tk):
+    """Rows, columns and the entries a tile writes: i, k < n, and i >= k in
+    a diagonal tile."""
+    T = K4_GLOBAL_TILE
+    i = pe + T * ti + np.arange(T)
+    k = pe + T * tk + np.arange(T)
+    ii, kk = np.meshgrid(i, k, indexing="ij")
+    return ii, kk, (ii < nn) & (kk < nn) & ((ti != tk) | (kk <= ii))
+
+
+def _global_diagonal(D, w):
+    """global_diagonal on the staged block D (NB x NB, lower, zero
+    elsewhere): returns Dt (Dt[j][k] = L_kj, L_jj on the diagonal, zero
+    below), dinv and rdiag.  Rows past w are zero with pivot 1."""
+    f32, NB = np.float32, K4_GLOBAL_NB
+    r = np.arange(NB)
+    a = np.where((r[:, None] < w) & (np.arange(NB)[None, :] < r[:, None]), D, 0).astype(f32)
+    dg = np.where(r < w, np.diag(D), 1).astype(f32)
+    Dt, lrr, dinv = np.zeros((NB, NB), f32), np.ones(NB, f32), np.zeros(NB, f32)
+    for j in range(NB):
+        d = dg[j]
+        inv = f32(1) / np.sqrt(np.maximum(d, f32(1e-12)))
+        li = a[:, j] * inv
+        lrr[j] = d * inv
+        below = r > j
+        dg[below] = _fma(-li[below], li[below], dg[below])
+        Dt[j, below] = li[below]
+        for k in range(j + 1, NB):              # the entries that are read: r > k
+            rows = r > k
+            a[rows, k] = _fma(-li[rows], Dt[j, k], a[rows, k])
+        dinv[j] = inv
+    Dt[r, r] = lrr
+    rdiag = f32(1) / np.maximum(lrr, f32(1e-12))
+    return Dt, dinv, rdiag
+
+
+def _global_emulate(A, B):
+    """mcptam_spd_solve_global's launch sequence, launch by launch, in f32
+    with fmaf where the kernels have it."""
+    f32, NB, T = np.float32, K4_GLOBAL_NB, K4_GLOBAL_TILE
+    A = np.asarray(A, f32)
+    nn, m = A.shape[0], B.shape[1]
+    ld = global_ld(nn)
+    W = np.zeros((nn, ld), f32)                 # global_load: W[i][k] = A[k][i], k <= i
+    il = np.tril_indices(nn)
+    W[il] = A.T[il]
+    Y = np.asarray(B, f32).copy()
+    Dg = np.zeros((NB, NB), f32)
+    launches = 1
+    for p0 in range(0, nn, NB):
+        w = min(NB, nn - p0)
+        pe = p0 + w
+        # global_panel
+        launches += 1
+        D = np.zeros((NB, NB), f32)
+        D[:w, :w] = np.tril(W[p0:pe, p0:pe])
+        Dt, dinv, rdiag = _global_diagonal(D, w)
+        L_pp = Dt.T[:w, :w]                     # the factored block, lower
+        if pe == nn:
+            W[p0:pe, p0:pe] = np.where(np.tri(w, dtype=bool), L_pp, W[p0:pe, p0:pe])
+        else:
+            Dg[...] = Dt
+        for c in range(m):                      # the forward step, a warp a column
+            y = np.zeros(NB, f32)
+            y[:w] = Y[p0:pe, c]
+            for j in range(w):
+                xj = y[j] * rdiag[j]
+                y[j] = xj
+                y[j + 1:] = _fma(-Dt[j, j + 1:], xj, y[j + 1:])
+            Y[p0:pe, c] = y[:w]
+        if pe == nn:
+            break
+        P = W[pe:nn, p0:pe].copy()              # the rows below, a row a thread
+        for j in range(NB):
+            P[:, j] = P[:, j] * dinv[j]
+            for k in range(j + 1, NB):
+                P[:, k] = _fma(-P[:, j], Dt[j, k], P[:, k])
+        W[pe:nn, p0:pe] = P
+        # global_update: the tiles' sums from zero over the panel's columns,
+        # subtracted once; then the right-hand side's rows; Dg placed in W
+        launches += 1
+        nt = -(-(nn - pe) // T)
+        S = np.zeros((nt * T, NB), f32)
+        S[:nn - pe] = P
+        acc = np.zeros((nt * T, nt * T), f32)
+        for c in range(NB):
+            acc = _fma(S[:, c][:, None], S[:, c][None, :], acc)
+        for ti, tk in _global_tiles(nn, pe):
+            ii, kk, ok = _tile_mask(nn, pe, ti, tk)
+            W[ii[ok], kk[ok]] = W[ii[ok], kk[ok]] - acc[ii[ok] - pe, kk[ok] - pe]
+        for c in range(m):
+            s = np.zeros(nn - pe, f32)
+            for j in range(NB):
+                s = _fma(P[:, j], Y[p0 + j, c], s)
+            Y[pe:, c] = Y[pe:, c] - s
+        W[p0:pe, p0:pe] = np.where(np.tri(NB, dtype=bool), Dg.T, W[p0:pe, p0:pe])
+    launches += 1                               # global_back, a column at a time
+    X = np.stack([_back_rhs(lambda i, j: W[i, j], Y[:, c].copy()) for c in range(m)], 1)
+    assert launches == global_launches(nn)
+    return X
+
+
+@pytest.mark.parametrize("nn,m", [(324, 1), (331, 1), (331, 3), (384, 1), (576, 1)])
+def test_k4_global_schedule_matches_jax(nn, m):
+    """K4's global path (mcptam_spd_solve_global's launches: the load, a
+    panel and an update launch per NB columns, the back-substitution)
+    beyond the shared range, at sizes that are and are not multiples of
+    NB and TILE: within SPD_TOL (1e-3) of a float64 solve and of the JAX
+    spd_solve."""
+    assert route(nn, m) == "spd_solve_blocked_global"
+    A, B = _spd_kappa(nn, nn + m)
+    if m > 1:
+        B = np.random.default_rng(nn).standard_normal((nn, m)).astype(np.float32)
+    x = _global_emulate(A, B)
     x64 = np.linalg.solve(A.astype(np.float64), B.astype(np.float64))
     assert _rel(x, x64) < 1e-3
     assert _rel(x, np.asarray(j_spd_solve(jnp.asarray(A), jnp.asarray(B)))) < 1e-3
+
+
+@pytest.mark.parametrize("nn", [324, 331, 384, 576])
+def test_k4_global_tiles_cover_the_trailing_triangle(nn):
+    """After every panel the update's tiles write each trailing lower
+    entry (rows and columns >= pe, i >= k) exactly once and nothing above
+    the diagonal, and its right-hand-side blocks take every row below the
+    panel once; the workspace and launch count the wrapper allocates and
+    expects."""
+    T, NB = K4_GLOBAL_TILE, K4_GLOBAL_NB
+    threads = (T // 4) ** 2                     # csrc/spd.cu UPDATE_THREADS
+    for pe in range(NB, nn, NB):
+        count = np.zeros((nn, nn), int)
+        for ti, tk in _global_tiles(nn, pe):
+            assert ti >= tk
+            ii, kk, ok = _tile_mask(nn, pe, ti, tk)
+            np.add.at(count, (ii[ok], kk[ok]), 1)
+        lower = np.tril(np.ones((nn, nn), bool))
+        lower[:pe] = False
+        lower[:, :pe] = False
+        assert np.all(count[lower] == 1) and np.all(count[~lower] == 0), pe
+        blocks = -(-(nn - pe) // threads)
+        rows = pe + np.arange(blocks * threads)
+        assert np.array_equal(rows[rows < nn], np.arange(pe, nn))
+    assert global_launches(nn) == 2 * -(-nn // NB) + 1
+    assert global_work_floats(nn, 1) == nn * global_ld(nn) + NB * NB + nn
 
 
 @pytest.mark.parametrize("nn,m,blocked,want", [
     (96, 1, True, "spd_solve_blocked"), (322, 1, True, "spd_solve_blocked"),
     (323, 1, True, "spd_solve_blocked_global"), (384, 1, True, "spd_solve_blocked_global"),
     (1536, 1, True, "spd_solve_blocked_global"), (96, 1, False, "spd_solve_simple"),
-    (339, 1, False, "spd_solve_simple"), (340, 1, False, None), (3385, 1, True, None),
+    (339, 1, False, "spd_solve_simple"), (340, 1, False, None),
+    (3384, 1, True, "spd_solve_blocked_global"), (56000, 1, True, "spd_solve_blocked_global"),
+    (56001, 1, True, None), (18666, 3, True, "spd_solve_blocked_global"), (18667, 3, True, None),
 ])
 def test_spd_route(nn, m, blocked, want):
     """The wrapper's routing: K4 in shared memory up to n = 322, its
-    global path beyond, up to where its panel and rhs fill shared memory;
-    K5 raises beyond n = 339 with a message that names the blocked
+    global path beyond, up to where the back-substitution's right-hand
+    sides and two 32 x 33 tiles fill shared memory (n m <= 56000); K5
+    raises beyond n = 339 with a message that names the blocked
     default."""
     if want is None:
         with pytest.raises(ValueError, match="blocked default" if not blocked else "global"):
