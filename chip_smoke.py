@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tracking, mapping and live paths, its
-`mcptam` app and its client/server split once on one NVIDIA GPU.
+`mcptam` app, its client/server split and its calibration once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -83,7 +84,22 @@ Phases, each fatal on failure:
      server's LM steps; (b) the server app and the client app as two
      processes on phase 8's dataset, the server at the default capacity:
      the client exits with 0 after reporting every frame once, none lost,
-     and SIGTERM stops the server with 0.
+     and SIGTERM stops the server with 0;
+ 10. calibration, on the card: (a) the camera calibrator app in-process
+     on tests/test_calib.py's six board poses at that test's 240x320 (RMS
+     "OK", a0 within 5%, the centre within 2 px; the seconds of detection,
+     linear solve and device LM printed; at 480x640 both packages' linear
+     initialisation misses, ROADMAP section C); (b) at H x W, the pose
+     calibrator app on tests/test_apps.py's 2-camera shared-board video,
+     its lens scaled to the frame, on its default (shared-board) path,
+     against the true extrinsic; (c) at H x W, PoseCalibSession on
+     scripts/zero_overlap_drive.py's rig, whose cameras never see the
+     board together, its lens scaled to the frame: 48 frames with
+     projected detections (0.05 px noise), 48 MKFs, then calib_init and
+     calib_step(40), gated as that drive is (both cameras running, a sync
+     group of both, the extrinsic's rotation and translation errors); it
+     prints frames/s, MKFs and groups, the BA's LM steps and the Schur
+     sizes they solved.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the FAST front-end must launch once a frame (phase 6 adds the features the
@@ -186,6 +202,37 @@ SBI_TOL = 1e-4          # the card's SBI against the CPU's
 # the whole run
 CS_MAX_MKFS, CS_DEADLINE_S = 64, 120.0
 CS_START_S, CS_CLIENT_TIMEOUT_S = 120.0, 300.0
+# the calibration phase.  (b) renders tests/test_apps.py's six board poses
+# and lens (a 240x320 lens there) at H x W, the lens scaled to the frame by
+# CALIB_SCALE; (c) is scripts/zero_overlap_drive.py's 2-camera rig, scene
+# and 48-frame trajectory (a 128x96 lens there) scaled by ZO_SCALE.  A lens
+# scales exactly with the image: a_i <- a_i s^(1-i), centre <- s centre
+CALIB_SCALE, ZO_SCALE = 2.0, 5.0
+# (a) runs at tests/test_calib.py's own 240x320 (scale 1): at 480x640 the
+# linear initialisation's centre search (calib/intrinsic.py::calibrate_linear)
+# settles on a wrong centre, (248, 305) against (326, 244), where the
+# algebraic residual is lower, and the LM ends at 1.498 px RMS in both
+# packages (ROADMAP section C)
+CALIB_CAMERA_H, CALIB_CAMERA_W, CALIB_CAMERA_SCALE = 240, 320, 1.0
+CALIB_SQUARES, CALIB_SQ = (8, 6), 0.04
+CALIB_PARAMS = [95.0, -0.0045, 3.0e-6, -6.0e-9, 163.0, 122.0, 1.0, 0.0, 0.0]
+CALIB_BOARD_POSES = [      # board_from_cam tangents (t, w), tests/test_calib.py
+    [0.22, 0.14, 0.18, 3.05, 0.10, 0.0], [0.28, 0.10, 0.30, 3.00, -0.45, 0.1],
+    [0.14, 0.20, 0.42, 3.1, 0.35, -0.35], [0.30, 0.08, 0.24, 2.85, 0.0, 0.45],
+    [0.18, 0.13, 0.55, 3.25, -0.3, -0.2], [0.25, 0.22, 0.34, 3.0, 0.5, 0.3],
+]
+CALIB_REL_W, CALIB_REL_T = [0.02, 0.30, -0.03], [-0.20, 0.02, 0.05]  # cam1_from_cam0
+CALIB_A0_TOL, CALIB_ROT_TOL, CALIB_TRANS_TOL = 0.05, 0.02, 0.03      # tests/test_apps.py
+ZO_SQUARES, ZO_SQ, ZO_SEP = (8, 6), 0.25, np.radians(60.0)
+ZO_PARAMS = [0.75 * 128, -0.0035, 1.0e-6, -6.0e-9, 128 / 2.0 + 1.0, 96 / 2.0 + 1.0,
+             1.001, 0.0003, -0.0002]
+ZO_REL_W, ZO_REL_T = [0.0, -ZO_SEP, 0.02], [0.22, -0.03, 0.06]
+ZO_FRAMES, ZO_ROT_START, ZO_ROT_END = 48, 4, 20
+ZO_NOISE_PX, ZO_MAX_MKFS, ZO_KF_DIST = 0.05, 48, 0.05
+ZO_ROT_TOL, ZO_TRANS_TOL = 0.01, 0.02    # the drive's gates (tests/test_pose_calib.py)
+# the map-maker's large-point test: the drive turns it off only because its
+# 128x96 frames leave levels >= 2 nearly featureless; at full size it holds
+ZO_LARGE_POINT_TEST = True
 # the H100 SXM's published peaks: HBM bytes/s and f32 operations/s outside
 # the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -1846,6 +1893,305 @@ def phase_client_server(cams, cfb, cams_sbi, card):
     return launches
 
 
+def scale_lens(params, s: float) -> np.ndarray:
+    """A Taylor 9-vector for the image scaled by s: a_i <- a_i s^(1-i) for
+    the polynomial's a0, a2, a3, a4, the centre times s."""
+    p = np.asarray(params, np.float64).copy()
+    p[:4] *= [s, s ** -1, s ** -2, s ** -3]
+    p[4:6] *= s
+    return p
+
+
+def calib_pose(v, dev):
+    """SE3 of a (t, w) tangent pair, rotation first as the tests build it."""
+    import torch
+    from mcptam_tpu_torch.core.se3 import SE3, so3_exp
+
+    return SE3(R=so3_exp(torch.tensor(v[3:], dtype=torch.float32, device=dev)),
+               t=torch.tensor(v[:3], dtype=torch.float32, device=dev))
+
+
+class StageTimes:
+    """Wraps module functions so each call adds its seconds under a label;
+    ``restore`` puts the originals back."""
+
+    def __init__(self):
+        self.seconds, self._saved = {}, []
+
+    def wrap(self, mod, name, label):
+        fn = getattr(mod, name)
+        self._saved.append((mod, name, fn))
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t0
+        setattr(mod, name, timed)
+
+    def restore(self):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+
+def run_main(main, argv):
+    """An app's main(argv) in-process, its output echoed: (rc, output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+    finally:
+        sys.stdout.write(out.getvalue())
+    return rc, out.getvalue()
+
+
+def calib_camera_app(root, card, dev):
+    """Phase 10 (a): the camera calibrator on six board views."""
+    import torch
+    from mcptam_tpu_torch.apps import camera_calibrator as app
+    from mcptam_tpu_torch.calib import intrinsic, intrinsic_gpu
+    from mcptam_tpu_torch.calib.board import render_checkerboard
+    from mcptam_tpu_torch.core.camera import make_camera
+
+    h, w = CALIB_CAMERA_H, CALIB_CAMERA_W
+    true = scale_lens(CALIB_PARAMS, CALIB_CAMERA_SCALE)
+    cam = make_camera(true, (w, h), device=dev)
+    views = os.path.join(root, "views.npy")
+    np.save(views, np.stack([
+        render_checkerboard(cam, calib_pose(v, dev), h, w, CALIB_SQUARES, CALIB_SQ)
+        .to(torch.uint8).cpu().numpy() for v in CALIB_BOARD_POSES]))
+    out = os.path.join(root, "camera.json")
+    stages = StageTimes()
+    stages.wrap(app, "grids_from_images", "detection")
+    stages.wrap(intrinsic, "calibrate_linear", "linear solve")
+    stages.wrap(intrinsic_gpu, "refine_lm_gpu", "device LM")
+    t0 = time.perf_counter()
+    try:
+        rc, text = run_main(app.main, ["--images", views, "--squares", "8x6",
+                                       "--square-size", str(CALIB_SQ), "--out", out])
+    finally:
+        stages.restore()
+    dt = time.perf_counter() - t0
+    if rc != 0 or "OK" not in text:
+        raise AssertionError(f"camera calibrator: rc {rc}, no OK (RMS >= 0.5 px)")
+    with open(out) as f:
+        got = np.asarray(json.load(f)["cameras"][0]["params"])
+    a0_err = abs(got[0] - true[0]) / true[0]
+    c_err = float(np.linalg.norm(got[4:6] - true[4:6]))
+    print(f"calibration (a) camera calibrator: {len(CALIB_BOARD_POSES)} views {h}x{w} in "
+          f"{dt:.3f} s (" + ", ".join(f"{k} {v:.3f} s" for k, v in stages.seconds.items())
+          + f") on {card}; a0 {got[0]:.4f} against {true[0]:.4f} ({a0_err:.2%}), centre "
+          f"off by {c_err:.3f} px")
+    if not a0_err < CALIB_A0_TOL or not c_err < 2.0 * CALIB_CAMERA_SCALE:
+        raise AssertionError(f"camera calibrator: a0 off by {a0_err:.2%} (< {CALIB_A0_TOL:.0%}), "
+                             f"centre by {c_err} px (< {2.0 * CALIB_CAMERA_SCALE})")
+
+
+def rel_errors(rel, true_rel):
+    """(rotation, translation) norms of ln(rel true_rel^-1)."""
+    err = (rel @ true_rel.inv()).ln().cpu().numpy()
+    return float(np.linalg.norm(err[3:])), float(np.linalg.norm(err[:3]))
+
+
+def calib_pose_app(root, card, dev):
+    """Phase 10 (b): the pose calibrator's shared-board path on a 2-camera
+    video of the six board poses."""
+    import torch
+    from mcptam_tpu_torch.apps import pose_calibrator as app
+    from mcptam_tpu_torch.calib.board import render_checkerboard
+    from mcptam_tpu_torch.core.camera import make_camera
+    from mcptam_tpu_torch.core.se3 import SE3
+
+    true = scale_lens(CALIB_PARAMS, CALIB_SCALE)
+    cam = make_camera(true, (W, H), device=dev)
+    true_rel = calib_pose(CALIB_REL_T + CALIB_REL_W, dev)
+    rig = os.path.join(root, "rig.json")
+    with open(rig, "w") as f:
+        json.dump({"width": W, "height": H, "cameras": [
+            {"name": f"camera{c + 1}", "params": [float(x) for x in true]}
+            for c in range(2)]}, f)
+    frames = np.zeros((2, len(CALIB_BOARD_POSES), H, W), np.uint8)
+    for i, v in enumerate(CALIB_BOARD_POSES):
+        bfc0 = calib_pose(v, dev)                         # board_from_cam0
+        for c, bfc in enumerate((bfc0, bfc0 @ true_rel.inv())):
+            frames[c, i] = render_checkerboard(cam, bfc, H, W, CALIB_SQUARES,
+                                               CALIB_SQ).to(torch.uint8).cpu().numpy()
+    video = os.path.join(root, "views.npz")
+    np.savez(video, frames=frames)
+    out = os.path.join(root, "rig_cal.json")
+    t0 = time.perf_counter()
+    rc, text = run_main(app.main, ["--rig", rig, "--video", video, "--squares", "8x6",
+                                   "--square-size", str(CALIB_SQ), "--out", out])
+    dt = time.perf_counter() - t0
+    if rc != 0 or "falling back" in text:
+        raise AssertionError(f"pose calibrator: rc {rc}, or it left the shared-board path")
+    with open(out) as f:
+        v6 = json.load(f)["cameras"][1]["cam_from_base"]
+    rot, trans = rel_errors(SE3.exp(torch.tensor(v6, dtype=torch.float32, device=dev)),
+                            true_rel)
+    print(f"calibration (b) pose calibrator: 2 x {len(CALIB_BOARD_POSES)} views {H}x{W} in "
+          f"{dt:.3f} s on {card}; rotation error {rot:.3e}, translation error {trans:.3e} m")
+    if not rot < CALIB_ROT_TOL or not trans < CALIB_TRANS_TOL:
+        raise AssertionError(f"pose calibrator: rotation error {rot} (< {CALIB_ROT_TOL}), "
+                             f"translation error {trans} (< {CALIB_TRANS_TOL})")
+
+
+def zo_base_pose(i: int, dev):
+    """scripts/zero_overlap_drive.py's cam0(base)-from-world at frame i:
+    frontal to the board, yawing by -ZO_SEP, translating for baseline."""
+    import torch
+    from mcptam_tpu_torch.core.se3 import SE3
+
+    centre = np.array([ZO_SQUARES[0] * ZO_SQ / 2, ZO_SQUARES[1] * ZO_SQ / 2, 0.0])
+    yaw = -ZO_SEP * np.clip((i - ZO_ROT_START) / (ZO_ROT_END - ZO_ROT_START), 0.0, 1.0)
+    Ry = np.array([[np.cos(yaw), 0, -np.sin(yaw)], [0, 1, 0],
+                   [np.sin(yaw), 0, np.cos(yaw)]], np.float64)
+    pos = np.array([centre[0] - 0.28 + 0.033 * i, centre[1] + 0.012 * i - 0.16,
+                    -1.7 + 0.012 * i])
+    return SE3(R=torch.as_tensor(Ry, dtype=torch.float32, device=dev),
+               t=torch.as_tensor(-Ry @ pos, dtype=torch.float32, device=dev))
+
+
+def zo_detectable(pose_c, cam, board2) -> bool:
+    """The drive's detectability: the board centre within 25 deg of the
+    optical axis and every corner projecting 4 px inside the image."""
+    import torch
+    from mcptam_tpu_torch.core.camera import project
+
+    dev = pose_c.t.device
+    centre = torch.tensor([ZO_SQUARES[0] * ZO_SQ / 2, ZO_SQUARES[1] * ZO_SQ / 2, 0.0],
+                          device=dev)
+    d_c = pose_c.apply(centre).cpu().numpy().astype(np.float64)
+    if np.degrees(np.arccos(min(1.0, d_c[2] / max(np.linalg.norm(d_c), 1e-9)))) > 25.0:
+        return False
+    uv, ok = project(cam, pose_c.apply(board2))
+    uvn, okn = uv.cpu().numpy(), ok.cpu().numpy()
+    return bool((okn & (uvn[:, 0] > 4) & (uvn[:, 0] < W - 4)
+                 & (uvn[:, 1] > 4) & (uvn[:, 1] < H - 4)).all())
+
+
+def calib_zero_overlap(card, dev):
+    """Phase 10 (c): PoseCalibSession on the zero-overlap rig.  Returns the
+    launch counts of the session's frames and final solves."""
+    import torch
+    from mcptam_tpu_torch import backend
+    from mcptam_tpu_torch.calib import pose_calib
+    from mcptam_tpu_torch.calib.board import inner_corner_points
+    from mcptam_tpu_torch.config import MapMakerConfig, TrackerConfig
+    from mcptam_tpu_torch.core.camera import make_camera, project, stack_cameras
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import make_sbi_cams, render_rig_board
+
+    params = scale_lens(ZO_PARAMS, ZO_SCALE)
+    cam = make_camera(params, (W, H), device=dev)
+    cams = stack_cameras([cam, cam])
+    true_rel = calib_pose(ZO_REL_T + ZO_REL_W, dev)
+    true_cfb = SE3(R=torch.stack([torch.eye(3, device=dev), true_rel.R]),
+                   t=torch.stack([torch.zeros(3, device=dev), true_rel.t]))
+    board2 = inner_corner_points(ZO_SQUARES, ZO_SQ).reshape(-1, 3)[:, :2]
+    board3 = torch.as_tensor(np.concatenate([board2, np.zeros((len(board2), 1))], 1),
+                             dtype=torch.float32, device=dev)
+
+    def cam_pose(i, c):
+        return zo_base_pose(i, dev) if c == 0 else true_rel @ zo_base_pose(i, dev)
+
+    detectable = np.array([[zo_detectable(cam_pose(i, c), cam, board3) for c in range(2)]
+                           for i in range(ZO_FRAMES)])
+    if np.any(detectable.all(1)) or not detectable.any(0).all():
+        raise AssertionError(f"zero-overlap scene: board views {detectable.sum(0)}, "
+                             f"{int(detectable.all(1).sum())} simultaneous")
+    session = pose_calib.PoseCalibSession(
+        cams=cams, cams_sbi=make_sbi_cams(cams, H, W), params9=[params, params],
+        board_pts2=board2, H=H, W=W, max_points=1024, max_mkfs=ZO_MAX_MKFS,
+        max_meas=8192,
+        tcfg=TrackerConfig(max_patches_per_frame=300, coarse_max=30,
+                           max_ssd_per_pixel=500.0),   # the drive's calibration-mode budget
+        mcfg=MapMakerConfig(large_point_test=ZO_LARGE_POINT_TEST),
+        max_scaled_kf_dist=ZO_KF_DIST)
+
+    lm_calls = []
+    lm_run = pose_calib.lm_run
+
+    def recorded(prob, st, cams_, n_steps, *a, **k):
+        lm_calls.append((6 * (prob.movable_a.shape[0] + prob.movable_b.shape[0]), n_steps))
+        return lm_run(prob, st, cams_, n_steps, *a, **k)
+
+    rng = np.random.default_rng(11)
+    pose_calib.lm_run = recorded
+    backend.reset_launch_counts()
+    try:
+        t_frames = 0.0
+        for i in range(ZO_FRAMES):
+            images = render_rig_board(cams, true_cfb, zo_base_pose(i, dev), SEED, H, W,
+                                      ZO_SQUARES, ZO_SQ)
+            detections = {}
+            for c in range(2):
+                if detectable[i, c]:
+                    uv, ok = project(cam, cam_pose(i, c).apply(board3))
+                    uvn = uv.cpu().numpy() + rng.normal(size=(len(board2), 2)) * ZO_NOISE_PX
+                    okn = ok.cpu().numpy()
+                    detections[c] = (uvn[okn], np.nonzero(okn)[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session.process_frame(images, detections)
+            torch.cuda.synchronize()
+            t_frames += time.perf_counter() - t0
+        n_frame_calls = len(lm_calls)
+        t0 = time.perf_counter()
+        session.calib_init()
+        session.calib_step(40)
+        torch.cuda.synchronize()
+        t_final = time.perf_counter() - t0
+    finally:
+        pose_calib.lm_run = lm_run
+    launches = backend.kernel_report()
+
+    rot, trans = rel_errors(session.cam_from_base[1], true_rel)
+    groups_full = sum(1 for g in session.sync_groups if len(g) == 2)
+    n_mkfs = int(session.ms.mkfs.valid.sum())
+    sizes = sorted({n for n, _ in lm_calls})
+    print(f"calibration (c) zero-overlap session: {ZO_FRAMES} frames {H}x{W} at "
+          f"{ZO_FRAMES / t_frames:.3f} frames/s ({t_frames * 1e3 / ZO_FRAMES:.3f} ms/frame), "
+          f"calib_init + calib_step(40) {t_final:.3f} s, on {card}; running {session.running}, "
+          f"board views {detectable.sum(0).tolist()}, {n_mkfs} MKFs, "
+          f"{len(session.sync_groups)} sync groups ({groups_full} with both cameras, "
+          f"{len(session.groups)} kept), BA LM steps {sum(n for _, n in lm_calls[:n_frame_calls])} "
+          f"in {n_frame_calls} chunks + final {[n for _, n in lm_calls[n_frame_calls:]]}, "
+          f"Schur sizes n = {sizes}; rotation error {rot:.3e}, translation error "
+          f"{trans:.3e} m; launches {launches}")
+    if session.running != [True, True] or groups_full <= 0:
+        raise AssertionError(f"zero-overlap session: running {session.running}, "
+                             f"{groups_full} groups with both cameras")
+    if not rot < ZO_ROT_TOL or not trans < ZO_TRANS_TOL:
+        raise AssertionError(f"zero-overlap session: rotation error {rot} (< {ZO_ROT_TOL}), "
+                             f"translation error {trans} (< {ZO_TRANS_TOL})")
+    if launches["fast_frontend"] != ZO_FRAMES:     # K1 once a frame
+        raise AssertionError(f"calibration: fast_frontend launched "
+                             f"{launches['fast_frontend']} times for {ZO_FRAMES} frames")
+    for k in ("search_patches", "esm_align_all", "half_sample", "gather_windows",
+              "spd_solve_blocked"):
+        if launches[k] <= 0:
+            raise AssertionError(f"calibration: kernel {k} never launched")
+    return launches
+
+
+def phase_calibration(card, dev):
+    """Phase 10.  Returns (c)'s launch counts."""
+    import tempfile
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as root:
+        calib_camera_app(root, card, dev)
+        calib_pose_app(root, card, dev)
+    return calib_zero_overlap(card, dev)
+
+
 def planar_cloud(rng, n_plane=N_PLANE, n_out=20, N=128):
     """tests/test_align.py's tilted plane with outliers, padded to N slots."""
     n = np.array([0.2, -0.3, 0.93])
@@ -2046,6 +2392,10 @@ def main() -> int:
 
     # ---- 9. client/server: in one process over loopback TCP, then the apps
     launches_cs = phase_client_server(cams, cfb, cams_sbi, card)
+
+    # ---- 10. calibration: both calibrator apps, then the zero-overlap
+    # pose-calibration session
+    launches_calib = phase_calibration(card, dev)
     launches = dict(launches_live)
     # BA's kernels are read from their own paths: K4 from mapping, K5 and
     # K4's global path from LM
@@ -2053,7 +2403,7 @@ def main() -> int:
     launches.update(launches_lm)
     by_phase = {"tracking": launches_track, "lm": launches_lm,
                 "mapping": launches_map, "live": launches_live, "app": launches_app,
-                "client_server": launches_cs}
+                "client_server": launches_cs, "calibration": launches_calib}
 
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],
@@ -2061,7 +2411,8 @@ def main() -> int:
          "max_abs_err": results[k][0], "ms": results[k][1],
          "plain_ms": results[k][2], "bound_ms": results[k][3][0],
          "bound_by": results[k][3][1], "library_ms": results[k][4],
-         "launches_by_phase": {p: c[k] for p, c in by_phase.items() if c.get(k)},
+         "launches_by_phase": {p: c[k] for p, c in by_phase.items()
+                               if c.get(k) or p == "calibration"},
          **({"sizes": sizes[k]} if k in sizes else {})}
         for k in KERNELS
     ]

@@ -1,10 +1,15 @@
 """Bundle-adjuster variants: problems from the map, and the writeback
-(port of mcptam_tpu/ba/adjusters.py, ref src/BundleAdjuster{Base,Multi}.cc).
+(port of mcptam_tpu/ba/adjusters.py, ref src/BundleAdjuster{Base,Multi,
+Single,Calib}.cc).
 
   * ``problem_all``: global BA, every valid MKF movable but the first,
     every point with >= 2 measurements (BundleAdjustAll);
   * ``problem_recent``: local BA, the newest MKF and its recent_num
     closest neighbours, scoped to their points (BundleAdjustRecent);
+  * ``problem_single``: every MKF base an independent movable pose, the
+    first not pinned (BundleAdjusterSingle, the pose calibration's);
+  * ``problem_calib``: shared movable extrinsics, camera 0 fixed
+    (BundleAdjusterCalib);
   * ``compact_problem``: the live points and measurements gathered into
     smaller bucketed capacities;
   * ``writeback`` and ``apply_outliers`` (AdjustAndUpdate,
@@ -16,8 +21,6 @@ empty slots (all pointing at point 0) overwrite point 0's entry, so point
 0 is frozen in every compaction that is not full; its ``writeback``
 scatters through the same duplicated index.  Here only occupied slots are
 written, in both places.
-
-Not ported: ``problem_single`` and ``problem_calib`` (calibration).
 """
 
 from __future__ import annotations
@@ -183,11 +186,36 @@ def expand_outliers(prob: BundleProblem, outlier_mask, full_K: int):
 
 
 def problem_single(ms: MapState) -> BundleProblem:
-    raise NotImplementedError("problem_single (pose calibration) is not ported")
+    """Independent-pose BA (BundleAdjusterSingle,
+    src/BundleAdjusterSingle.cc:55-120): every valid, non-fixed MKF base
+    moves freely.  The pose-calibration map holds one single-camera MKF per
+    dropped keyframe with identity extrinsics, so each base IS an
+    independent camera-from-world pose.  Unlike problem_all the first MKF
+    is not pinned: the board-anchored FIXED points carry the gauge (the
+    reference clears mbFixed on the init MKF, src/MapMakerCalib.cc:72-80)."""
+    movable_a = ms.mkfs.valid & ~ms.mkfs.fixed
+    C = ms.cam_from_base.t.shape[0]
+    movable_b = torch.zeros(C, dtype=torch.bool, device=movable_a.device)
+    pts = ms.points
+    movable_pt = (pts.valid & ~pts.bad & ~pts.fixed
+                  & (_meas_counts_per_point(ms) >= 2))
+    return _base_problem(ms, movable_a, movable_b, movable_pt)
 
 
 def problem_calib(ms: MapState) -> BundleProblem:
-    raise NotImplementedError("problem_calib (extrinsic calibration) is not ported")
+    """Extrinsic-calibration BA (BundleAdjusterCalib,
+    src/BundleAdjusterCalib.cc:88-308): the shared cam-from-base poses
+    movable but camera 0's (the reference), MKF bases movable but the
+    first; points need one measurement."""
+    movable_a = ms.mkfs.valid & ~ms.mkfs.fixed
+    movable_a[_first_valid(ms.mkfs.valid)] = False
+    C = ms.cam_from_base.t.shape[0]
+    movable_b = torch.ones(C, dtype=torch.bool, device=movable_a.device)
+    movable_b[0] = False
+    pts = ms.points
+    movable_pt = (pts.valid & ~pts.bad & ~pts.fixed
+                  & (_meas_counts_per_point(ms) >= 1))
+    return _base_problem(ms, movable_a, movable_b, movable_pt)
 
 
 def writeback(ms: MapState, prob: BundleProblem, st: LMState) -> MapState:

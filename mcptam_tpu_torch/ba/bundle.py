@@ -9,8 +9,11 @@ hand-written Cholesky kernel (``core/spd.spd_solve``) once per LM step.
 ``lm_run`` is a Python loop carrying the current chi2 as the reference's
 scan does; it reads nothing back to the host.
 
-Not ported: the scatter-based LM path for problems without an observation
-table (``_normal_system``, ``_solve_delta``); it raises NotImplementedError.
+Problems built by hand without an observation table (the extrinsic
+calibration's, calib/extrinsic.py) take the scatter path: the normal
+equations accumulated per measurement (``_normal_system``) and the reduced
+system solved with ``torch.linalg.solve`` (``_solve_delta``), as the JAX
+package solves that path with ``jnp.linalg.solve``.
 """
 
 from __future__ import annotations
@@ -29,10 +32,6 @@ from mcptam_tpu_torch.core.camera import (
 from mcptam_tpu_torch.core.linalg import inv3
 from mcptam_tpu_torch.core.se3 import SE3
 from mcptam_tpu_torch.core.spd import spd_solve
-
-_NO_TABLE = ("the LM path for problems without an observation table is not "
-             "ported; call attach_obs_table first")
-
 
 @dataclass
 class BundleProblem:
@@ -210,11 +209,77 @@ def _assemble_grouped(prob: BundleProblem, e, Ja, Jb, Jl, w):
     return Hf, b_p, V, b_l, Wl
 
 
+def _normal_system(prob: BundleProblem, e, Ja, Jb, Jl, w):
+    """The undamped normal equations accumulated per measurement: pose-pose
+    blocks Hpp (P,P,6,6) with the (a,b) cross blocks a measurement's two
+    chain poses share, b_p (P,6), the point diagonal V (L,3,3), b_l (L,3)
+    and the pose-point blocks W (P,L,6,3)."""
+    Pa = prob.movable_a.shape[0]
+    P = Pa + prob.movable_b.shape[0]
+    L = prob.points.shape[0]
+    dt, dev = e.dtype, e.device
+    ga = prob.m_pose_a.long()
+    gb = Pa + prob.m_pose_b.long()
+    gpose = torch.cat([ga, gb])
+    Jp2 = torch.cat([Ja, Jb], 0)                            # (2K,2,6)
+    e2 = torch.cat([e, e], 0)
+    w2 = torch.cat([w, w], 0)
+    pt = prob.m_point.long()
+    pt2 = torch.cat([pt, pt])
+
+    Hpp = torch.zeros((P, P, 6, 6), dtype=dt, device=dev)
+    Hpp.index_put_((gpose, gpose), torch.einsum("k,kiv,kiw->kvw", w2, Jp2, Jp2),
+                   accumulate=True)
+    Hab = torch.einsum("k,kiv,kiw->kvw", w, Ja, Jb)
+    Hpp.index_put_((ga, gb), Hab, accumulate=True)
+    Hpp.index_put_((gb, ga), Hab.transpose(-1, -2), accumulate=True)
+    b_p = torch.zeros((P, 6), dtype=dt, device=dev).index_add_(
+        0, gpose, torch.einsum("k,kiv,ki->kv", w2, Jp2, e2))
+    V = torch.zeros((L, 3, 3), dtype=dt, device=dev).index_add_(
+        0, pt, torch.einsum("k,kiv,kiw->kvw", w, Jl, Jl))
+    b_l = torch.zeros((L, 3), dtype=dt, device=dev).index_add_(
+        0, pt, torch.einsum("k,kiv,ki->kv", w, Jl, e))
+    W = torch.zeros((P, L, 6, 3), dtype=dt, device=dev)
+    W.index_put_((gpose, pt2), torch.einsum("k,kiv,kiw->kvw", w2, Jp2,
+                                            torch.cat([Jl, Jl], 0)), accumulate=True)
+    return Hpp, b_p, V, b_l, W
+
+
 def _assemble_flat(prob: BundleProblem, e, Ja, Jb, Jl, w):
-    """Flat-space normal equations (observation-table layout only)."""
-    if prob.obs_idx is None:
-        raise NotImplementedError(_NO_TABLE)
-    return _assemble_grouped(prob, e, Ja, Jb, Jl, w)
+    """Flat-space normal equations from either layout: through the
+    observation table when one is attached, else accumulated per
+    measurement.  Returns (Hpp (6P,6P), b_p (6P,), V (L,3,3), b_l (L,3),
+    Wl (L,6P,3))."""
+    if prob.obs_idx is not None:
+        return _assemble_grouped(prob, e, Ja, Jb, Jl, w)
+    P = prob.movable_a.shape[0] + prob.movable_b.shape[0]
+    Hpp, b_p, V, b_l, W = _normal_system(prob, e, Ja, Jb, Jl, w)
+    Hf = Hpp.permute(0, 2, 1, 3).reshape(6 * P, 6 * P)
+    Wl = W.permute(1, 0, 2, 3).reshape(-1, 6 * P, 3)
+    return Hf, b_p.reshape(-1), V, b_l, Wl
+
+
+def _solve_delta(prob: BundleProblem, e, Ja, Jb, Jl, w, lam):
+    """One damped Gauss-Newton solve by Schur complement, either layout.
+    Returns (delta_a (Pa,6), delta_b (Pb,6), delta_pt (L,3))."""
+    Pa = prob.movable_a.shape[0]
+    P = Pa + prob.movable_b.shape[0]
+    Hf, b_p, V, b_l, Wl = _assemble_flat(prob, e, Ja, Jb, Jl, w)
+    eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
+    Hf = Hf + torch.diag(lam * torch.diagonal(Hf) + 1e-8)
+    Vd = V + lam * (V * eye3) + 1e-8 * eye3
+    Vinv = inv3(Vd) * prob.movable_pt[:, None, None]
+    T = torch.einsum("lxw,lwy->lxy", Wl, Vinv)              # (L,6P,3)
+    S = Hf - torch.einsum("lxy,lzy->xz", T, Wl)
+    b_s = b_p - torch.einsum("lxy,ly->x", T, b_l)
+    movable = torch.cat([prob.movable_a, prob.movable_b])
+    mvec = movable.repeat_interleave(6).to(torch.float32)
+    Sf = S * mvec[:, None] * mvec[None, :] + torch.diag(1.0 - mvec)
+    delta_f = torch.linalg.solve(Sf, b_s * mvec) * mvec
+    delta_p = delta_f.reshape(P, 6) * movable[:, None]
+    rhs = b_l - torch.einsum("lxw,x->lw", Wl, delta_f)
+    delta_l = torch.einsum("lxy,ly->lx", Vinv, rhs)
+    return delta_p[:Pa], delta_p[Pa:], delta_l
 
 
 # ---------------------------------------------------------------------------
@@ -475,6 +540,42 @@ def _select(act, a: SE3, b: SE3) -> SE3:
     return SE3(R=torch.where(act, a.R, b.R), t=torch.where(act, a.t, b.t))
 
 
+def _lm_update(prob: BundleProblem, st: LMState, bcfg: BundleConfig, deltas, trial,
+               cost0, cost1, sigma_sq, ok, ok1):
+    """The accept/reject step both LM paths share: the trial (its poses and
+    points, reached by ``deltas``) is taken when its cost is lower and it
+    keeps at least half the valid measurements (a trial whose valid count
+    collapses scores a spuriously low cost); the attempted update or the
+    relative cost change below threshold latches convergence, accepted or
+    not, so a stalled reject loop stops too.  Returns (state, act)."""
+    da, db, dl = deltas
+    new_pose_a, new_pose_b, new_points = trial
+    accept = (cost1 < cost0) & (torch.sum(ok1) * 2 >= torch.sum(ok))
+    n_upd = torch.sum(da * da) + torch.sum(db * db) + torch.sum(dl * dl)
+    n_params = (6.0 * (torch.sum(prob.movable_a) + torch.sum(prob.movable_b))
+                + 3.0 * torch.sum(prob.movable_pt))
+    upd_rms = torch.sqrt(n_upd / torch.clamp(n_params, min=1.0))
+    rel_delta = torch.abs(cost0 - cost1) / torch.clamp(cost0, min=1e-20)
+    converged = ((upd_rms < bcfg.update_rms_conv)
+                 | (rel_delta < bcfg.residual_delta_conv))
+    act = accept & ~st.converged
+    lam = torch.where(st.converged, st.lam,
+                      torch.where(accept, st.lam * bcfg.lambda_down,
+                                  st.lam * bcfg.lambda_up))
+    return LMState(
+        pose_a=_select(act, new_pose_a, st.pose_a),
+        pose_b=_select(act, new_pose_b, st.pose_b),
+        points=torch.where(act, new_points, st.points),
+        lam=torch.clamp(lam, 1e-10, 1e8),
+        cost=torch.where(act, cost1, cost0),
+        sigma_sq=sigma_sq,
+        converged=st.converged | converged,
+        accepted=st.accepted + act.to(torch.int32),
+        iterations=st.iterations + (~st.converged).to(torch.int32),
+        max_update=torch.where(act, upd_rms, st.max_update),
+    ), act
+
+
 def _lm_step_soa_carried(prob: BundleProblem, st: LMState, chi2, ok,
                          cams: CameraModel, bcfg: BundleConfig, pr: dict,
                          fixed_b: bool = False):
@@ -493,43 +594,42 @@ def _lm_step_soa_carried(prob: BundleProblem, st: LMState, chi2, ok,
 
     chi2_1, ok1 = _resid_chi2_soa(prob, new_pose_a, new_pose_b, new_points, cams)
     cost1 = torch.sum(mest.objective_score(mest.HUBER, chi2_1, sigma_sq) * ok1)
-
-    # a trial whose valid-measurement count collapses scores a spuriously
-    # low cost: the step must keep at least half the valid measurements
-    keeps_valid = torch.sum(ok1) * 2 >= torch.sum(ok)
-    accept = (cost1 < cost0) & keeps_valid
-    n_upd = torch.sum(da * da) + torch.sum(db * db) + torch.sum(dl * dl)
-    n_params = (6.0 * (torch.sum(prob.movable_a) + torch.sum(prob.movable_b))
-                + 3.0 * torch.sum(prob.movable_pt))
-    upd_rms = torch.sqrt(n_upd / torch.clamp(n_params, min=1.0))
-    rel_delta = torch.abs(cost0 - cost1) / torch.clamp(cost0, min=1e-20)
-    converged = ((upd_rms < bcfg.update_rms_conv)
-                 | (rel_delta < bcfg.residual_delta_conv))
-
-    act = accept & ~st.converged
-    lam = torch.where(st.converged, st.lam,
-                      torch.where(accept, st.lam * bcfg.lambda_down,
-                                  st.lam * bcfg.lambda_up))
-    st_new = LMState(
-        pose_a=_select(act, new_pose_a, st.pose_a),
-        pose_b=_select(act, new_pose_b, st.pose_b),
-        points=torch.where(act, new_points, st.points),
-        lam=torch.clamp(lam, 1e-10, 1e8),
-        cost=torch.where(act, cost1, cost0),
-        sigma_sq=sigma_sq,
-        converged=st.converged | converged,
-        accepted=st.accepted + act.to(torch.int32),
-        iterations=st.iterations + (~st.converged).to(torch.int32),
-        max_update=torch.where(act, upd_rms, st.max_update),
-    )
+    st_new, act = _lm_update(prob, st, bcfg, (da, db, dl),
+                             (new_pose_a, new_pose_b, new_points), cost0, cost1,
+                             sigma_sq, ok, ok1)
     return st_new, torch.where(act, chi2_1, chi2), torch.where(act, ok1, ok)
+
+
+def _lm_step_scatter(prob: BundleProblem, st: LMState, cams: CameraModel,
+                     bcfg: BundleConfig) -> LMState:
+    """One LM iteration of a problem without an observation table: the
+    AoS residuals and Jacobians, ``_solve_delta``, and the trial scored
+    under the same sigma."""
+    e, Ja, Jb, Jl, ok = _residuals_and_jacobians(prob, st.pose_a, st.pose_b,
+                                                 st.points, cams)
+    w, cost0, sigma_sq = _robust(e, ok, bcfg)
+    da, db, dl = _solve_delta(prob, e, Ja, Jb, Jl, w, st.lam)
+    new_pose_a = SE3.exp(da) @ st.pose_a
+    new_pose_b = SE3.exp(db) @ st.pose_b
+    new_points = st.points + dl
+
+    e1, _, _, _, ok1 = _residuals_and_jacobians(prob, new_pose_a, new_pose_b,
+                                                new_points, cams)
+    # the trial scored under the same sigma
+    cost1 = torch.sum(mest.objective_score(mest.HUBER, torch.sum(e1 * e1, -1), sigma_sq)
+                      * ok1)
+    return _lm_update(prob, st, bcfg, (da, db, dl), (new_pose_a, new_pose_b, new_points),
+                      cost0, cost1, sigma_sq, ok, ok1)[0]
 
 
 def lm_step(prob: BundleProblem, st: LMState, cams: CameraModel,
             bcfg: BundleConfig = DEFAULT_BUNDLE, fixed_b: bool = False) -> LMState:
-    """One LM iteration with accept/reject; frozen once converged."""
+    """One LM iteration with accept/reject; frozen once converged.  A
+    problem without an observation table takes the scatter path, which
+    ignores ``fixed_b`` (its movable masks say the same), as the JAX
+    package's does."""
     if prob.obs_idx is None:
-        raise NotImplementedError(_NO_TABLE)
+        return _lm_step_scatter(prob, st, cams, bcfg)
     chi2, ok = _resid_chi2_soa(prob, st.pose_a, st.pose_b, st.points, cams)
     return _lm_step_soa_carried(prob, st, chi2, ok, cams, bcfg, _soa_prep(prob),
                                 fixed_b=fixed_b)[0]
@@ -557,7 +657,9 @@ def lm_run(prob: BundleProblem, st: LMState, cams: CameraModel, n_steps: int,
     can preempt between chunks (setForceStopFlag, src/ChainBundle.cc:1309).
     Nothing is read back to the host."""
     if prob.obs_idx is None:
-        raise NotImplementedError(_NO_TABLE)
+        for _ in range(n_steps):
+            st = _lm_step_scatter(prob, st, cams, bcfg)
+        return st
     pr = _soa_prep(prob)
     chi2, ok = _resid_chi2_soa(prob, st.pose_a, st.pose_b, st.points, cams)
     for _ in range(n_steps):

@@ -1,9 +1,10 @@
 """Synthetic multi-camera scene: ground-truth replay harness (port of
-mcptam_tpu/io/synthetic.py without the calibration-board world).
+mcptam_tpu/io/synthetic.py).
 
 A procedurally textured sphere rendered through the Taylor camera model
 gives multi-view-consistent images with exact ground-truth poses and
-depths for any rig trajectory.  The texture hashes ``sin(h)*43758.5453``,
+depths for any rig trajectory; the pose-calibration world adds an opaque
+checkerboard on the world z=0 plane (``render_view_board``).  The texture hashes ``sin(h)*43758.5453``,
 so one ulp of ``sin`` moves a pixel by ~1e-3 grey levels' worth of hash:
 renders agree with the JAX package's within a few grey levels, not bit for
 bit.
@@ -20,6 +21,7 @@ from mcptam_tpu_torch.core.camera import (
 )
 from mcptam_tpu_torch.core.levels import level_zero_pos
 from mcptam_tpu_torch.core.se3 import SE3
+from mcptam_tpu_torch.ops.pyramid import gaussian_blur_3
 
 SPHERE_RADIUS = 6.0
 
@@ -83,6 +85,68 @@ def render_rig(cams: CameraModel, cam_from_base: SE3, base_from_world: SE3,
     C = cam_from_base.t.shape[0]
     return torch.stack([
         render_view(cams[i], cam_from_base[i] @ base_from_world, seed, H, W)
+        for i in range(C)
+    ])
+
+
+def render_view_board(cam: CameraModel, cam_from_world: SE3, seed: float,
+                      H: int, W: int, squares=(8, 6),
+                      square_size: float = 0.25) -> torch.Tensor:
+    """One view of a world holding both the textured sphere and an opaque
+    checkerboard on the world z=0 plane spanning [0, squares[0]*s] x
+    [0, squares[1]*s]: the pose-calibration world, whose frame IS the
+    board frame (the reference anchors the calibration map to the grid,
+    src/MapMakerCalib.cc:72-90).  (H,W) f32 on the camera's device."""
+    dev = cam.center.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    rays_c = unproject(cam, torch.stack([xs, ys], -1))
+    w_from_c = cam_from_world.inv()
+    d = torch.einsum("ij,hwj->hwi", w_from_c.R, rays_c)
+    c = w_from_c.t
+    b = torch.einsum("hwi,i->hw", d, c)
+    disc = b * b - (torch.dot(c, c) - SPHERE_RADIUS ** 2)
+    t_sph = -b + torch.sqrt(torch.clamp(disc, min=0.0))
+    sphere_col = texture(c + t_sph[..., None] * d, seed)
+    dz = torch.where(torch.abs(d[..., 2]) < 1e-9, torch.full_like(d[..., 2], 1e-9),
+                     d[..., 2])
+    t_pl = -c[2] / dz
+    q = c + t_pl[..., None] * d
+    gx = q[..., 0] / square_size
+    gy = q[..., 1] / square_size
+    on_board = ((t_pl > 1e-3) & (t_pl < t_sph) & (gx >= 0) & (gx <= squares[0])
+                & (gy >= 0) & (gy <= squares[1]))
+
+    # anti-aliased checker 0.5 (1 + sq(gx) sq(gy)), sq the period-2 square
+    # wave box-filtered over each pixel's footprint through its
+    # antiderivative, the period-2 triangle wave: point sampling would bake
+    # in aliasing that caps sub-pixel matching near 0.4 px
+    def tri(x):
+        return 1.0 - torch.abs(torch.remainder(x, 2.0) - 1.0)
+
+    def sq_filtered(g, w):
+        w = torch.clamp(w, min=1e-4)
+        return (tri(g + 0.5 * w) - tri(g - 0.5 * w)) / w
+
+    def footprint(g):
+        dgy, dgx = torch.gradient(g)
+        return torch.abs(dgx) + torch.abs(dgy)
+
+    sgn = sq_filtered(gx, footprint(gx)) * sq_filtered(gy, footprint(gy))
+    img = torch.where(on_board, 127.5 + 107.5 * sgn, sphere_col)
+    # optical blur, as render_checkerboard's: razor-sharp edges would make
+    # a half-pixel misregistration blow the ZMSSD budget
+    return gaussian_blur_3(img, sigma=1.0, radius=3)
+
+
+def render_rig_board(cams: CameraModel, cam_from_base: SE3,
+                     base_from_world: SE3, seed: float, H: int, W: int,
+                     squares=(8, 6), square_size: float = 0.25) -> torch.Tensor:
+    """All C cameras of the board-and-sphere world: (C,H,W) f32."""
+    C = cam_from_base.t.shape[0]
+    return torch.stack([
+        render_view_board(cams[i], cam_from_base[i] @ base_from_world, seed, H, W,
+                          squares, square_size)
         for i in range(C)
     ])
 
