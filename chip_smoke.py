@@ -213,7 +213,7 @@ CALIB_SCALE, ZO_SCALE = 2.0, 5.0
 # settles on a wrong centre, (248, 305) against (326, 244), where the
 # algebraic residual is lower, and the LM ends at 1.498 px RMS in both
 # packages (ROADMAP section C)
-CALIB_CAMERA_H, CALIB_CAMERA_W, CALIB_CAMERA_SCALE = 240, 320, 1.0
+CALIB_CAMERA_H, CALIB_CAMERA_W = 240, 320
 CALIB_SQUARES, CALIB_SQ = (8, 6), 0.04
 CALIB_PARAMS = [95.0, -0.0045, 3.0e-6, -6.0e-9, 163.0, 122.0, 1.0, 0.0, 0.0]
 CALIB_BOARD_POSES = [      # board_from_cam tangents (t, w), tests/test_calib.py
@@ -222,7 +222,8 @@ CALIB_BOARD_POSES = [      # board_from_cam tangents (t, w), tests/test_calib.py
     [0.18, 0.13, 0.55, 3.25, -0.3, -0.2], [0.25, 0.22, 0.34, 3.0, 0.5, 0.3],
 ]
 CALIB_REL_W, CALIB_REL_T = [0.02, 0.30, -0.03], [-0.20, 0.02, 0.05]  # cam1_from_cam0
-CALIB_A0_TOL, CALIB_ROT_TOL, CALIB_TRANS_TOL = 0.05, 0.02, 0.03      # tests/test_apps.py
+# tests/test_apps.py's gates: a0 relative, centre px, rotation, translation m
+CALIB_A0_TOL, CALIB_CENTRE_PX, CALIB_ROT_TOL, CALIB_TRANS_TOL = 0.05, 2.0, 0.02, 0.03
 ZO_SQUARES, ZO_SQ, ZO_SEP = (8, 6), 0.25, np.radians(60.0)
 ZO_PARAMS = [0.75 * 128, -0.0035, 1.0e-6, -6.0e-9, 128 / 2.0 + 1.0, 96 / 2.0 + 1.0,
              1.001, 0.0003, -0.0002]
@@ -230,9 +231,13 @@ ZO_REL_W, ZO_REL_T = [0.0, -ZO_SEP, 0.02], [0.22, -0.03, 0.06]
 ZO_FRAMES, ZO_ROT_START, ZO_ROT_END = 48, 4, 20
 ZO_NOISE_PX, ZO_MAX_MKFS, ZO_KF_DIST = 0.05, 48, 0.05
 ZO_ROT_TOL, ZO_TRANS_TOL = 0.01, 0.02    # the drive's gates (tests/test_pose_calib.py)
-# the map-maker's large-point test: the drive turns it off only because its
-# 128x96 frames leave levels >= 2 nearly featureless; at full size it holds
-ZO_LARGE_POINT_TEST = True
+# (c)'s window gathers and Schur solves held against their plain versions:
+# the first call of each shape, at most this many a kernel
+ZO_HOLDS = 8
+# the session stops a camera after this many frames in a row that are not
+# GOOD (calib/pose_calib.py::process_frame); (c) prints how close each
+# camera came, over all its frames and the last ZO_MARGIN_FRAMES
+ZO_STOP_STREAK, ZO_MARGIN_FRAMES = 5, 8
 # the H100 SXM's published peaks: HBM bytes/s and f32 operations/s outside
 # the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -342,16 +347,20 @@ def time_ms(fn, reps: int = 20, windows: int = 3) -> float:
 
 
 def check_fast(images):
-    """K1 on the four pyramid levels of a rendered frame, all levels in one
-    launch and each level alone: exact.  Timed as the path calls it, one
-    launch for the four levels."""
+    """K1 on the four pyramid levels of a rendered frame (``hold_fast``)."""
+    from mcptam_tpu_torch.ops.pyramid import build_pyramid
+
+    return hold_fast([p.contiguous() for p in build_pyramid(images)])
+
+
+def hold_fast(pyr):
+    """K1 on pyramid levels, all levels in one launch and each level alone:
+    exact.  Timed as the path calls it, one launch for the levels."""
     import torch
     from mcptam_tpu_torch.ops.fast_kernel import (
         fast_frontend, fast_frontend_levels, fast_frontend_reference,
     )
-    from mcptam_tpu_torch.ops.pyramid import build_pyramid
 
-    pyr = [p.contiguous() for p in build_pyramid(images)]
     levels = fast_frontend_levels(pyr)
     err = 0.0
     for lvl, p in enumerate(pyr):
@@ -419,15 +428,21 @@ def check_gather(feats, atlas_u8, gen):
 
 def check_esm(feats_prev, feats_cur):
     """K3 on real SBI pairs at the tracker's shape (C=4, 9 iterations) and
-    the relocaliser's (camera 0 of the same pair, 12 iterations): se2
-    within ESM_TOL.  Returns the tracker's row and a row for each shape."""
+    the relocaliser's (camera 0 of the same pair, 12 iterations)
+    (``hold_esm``)."""
+    pair = (feats_prev.sbi, feats_cur.sbi, feats_cur.sbi_gx, feats_cur.sbi_gy)
+    return hold_esm(((pair, 9), (tuple(a[:1].contiguous() for a in pair),
+                                 RELOC_ITERATIONS)))
+
+
+def hold_esm(cases):
+    """K3 on (cur, target, gx, gy) arguments with their iteration counts:
+    se2 within ESM_TOL.  Returns the first case's row and a row for each."""
     import torch
     from mcptam_tpu_torch.ops.sbi_kernel import esm_align, esm_align_all
 
-    pair = (feats_prev.sbi, feats_cur.sbi, feats_cur.sbi_gx, feats_cur.sbi_gy)
     err, sizes = 0.0, []
-    for args, iters in ((pair, 9), (tuple(a[:1].contiguous() for a in pair),
-                                    RELOC_ITERATIONS)):
+    for args, iters in cases:
         se2_k, score_k = esm_align_all(*args, n_iterations=iters)
         se2_p, score_p = esm_align(*args, n_iterations=iters)
         torch.cuda.synchronize()
@@ -452,11 +467,9 @@ def check_esm(feats_prev, feats_cur):
 
 def check_half_sample(frame):
     """K6/K7 on random f32 (4,480,640) of many magnitudes and on a rendered
-    frame, and down the pyramid and SBI chain: bit-exact.  Timed at
-    (4,480,640) beside the plain version and F.avg_pool2d."""
+    frame, and down the pyramid and SBI chain (``hold_half_sample``)."""
     import torch
-    import torch.nn.functional as F
-    from mcptam_tpu_torch.ops.pyramid import half_sample, half_sample_reference
+    from mcptam_tpu_torch.ops.pyramid import half_sample_reference
 
     gen = torch.Generator().manual_seed(1)
     x = torch.randn((C, H, W), generator=gen) * torch.pow(
@@ -464,6 +477,16 @@ def check_half_sample(frame):
     cases = [x.to(frame.device), frame]
     for _ in range(4):                   # the SBI chain's levels, to 30x40
         cases.append(half_sample_reference(cases[-1]))
+    return hold_half_sample(cases)
+
+
+def hold_half_sample(cases):
+    """K6/K7 on each image of ``cases``: bit-exact.  Timed at the first
+    beside the plain version and F.avg_pool2d."""
+    import torch
+    import torch.nn.functional as F
+    from mcptam_tpu_torch.ops.pyramid import half_sample, half_sample_reference
+
     for a in cases:
         got, ref = half_sample(a), half_sample_reference(a)
         torch.cuda.synchronize()
@@ -775,9 +798,10 @@ def record_searches(sys_, batch):
     return calls
 
 
-def check_search(calls):
+def check_search(calls, tcfg=None):
     """K2's fused search against search_patches_reference on a tracked
-    frame's coarse (K=60, R=8) and fine (K=1000, R=10) calls: the real
+    frame's coarse (K=60, R=8) and fine (K=1000, R=10) calls (the budgets
+    and ranges of ``tcfg``, the default TrackerConfig if None): the real
     packed atlas, templates and predictions.  sum_p and sum_p2 bit-exact,
     region_ok equal; found and the best offset agree on SEARCH_AGREE of the
     pairs and every disagreement is a near-tie; where they agree the
@@ -791,7 +815,7 @@ def check_search(calls):
         WSZ, search_patches, search_patches_reference,
     )
 
-    tcfg = TrackerConfig()
+    tcfg = tcfg or TrackerConfig()
     stages = (("coarse", -(-tcfg.coarse_range // 4), tcfg.coarse_sub_pix_its),
               ("fine", tcfg.fine_range_first, tcfg.fine_sub_pix_its))
     err, sizes = 0.0, []
@@ -1959,7 +1983,7 @@ def calib_camera_app(root, card, dev):
     from mcptam_tpu_torch.core.camera import make_camera
 
     h, w = CALIB_CAMERA_H, CALIB_CAMERA_W
-    true = scale_lens(CALIB_PARAMS, CALIB_CAMERA_SCALE)
+    true = np.asarray(CALIB_PARAMS, np.float64)
     cam = make_camera(true, (w, h), device=dev)
     views = os.path.join(root, "views.npy")
     np.save(views, np.stack([
@@ -1987,9 +2011,9 @@ def calib_camera_app(root, card, dev):
           f"{dt:.3f} s (" + ", ".join(f"{k} {v:.3f} s" for k, v in stages.seconds.items())
           + f") on {card}; a0 {got[0]:.4f} against {true[0]:.4f} ({a0_err:.2%}), centre "
           f"off by {c_err:.3f} px")
-    if not a0_err < CALIB_A0_TOL or not c_err < 2.0 * CALIB_CAMERA_SCALE:
+    if not a0_err < CALIB_A0_TOL or not c_err < CALIB_CENTRE_PX:
         raise AssertionError(f"camera calibrator: a0 off by {a0_err:.2%} (< {CALIB_A0_TOL:.0%}), "
-                             f"centre by {c_err} px (< {2.0 * CALIB_CAMERA_SCALE})")
+                             f"centre by {c_err} px (< {CALIB_CENTRE_PX})")
 
 
 def rel_errors(rel, true_rel):
@@ -2075,17 +2099,234 @@ def zo_detectable(pose_c, cam, board2) -> bool:
                  & (uvn[:, 1] > 4) & (uvn[:, 1] < H - 4)).all())
 
 
-def calib_zero_overlap(card, dev):
-    """Phase 10 (c): PoseCalibSession on the zero-overlap rig.  Returns the
-    launch counts of the session's frames and final solves."""
+class CallRecorder:
+    """Wraps module functions and keeps clones of the arguments they are
+    called with, as (tag, args, kwargs) under a label: every call while
+    ``on``, or, for a function wrapped with ``first=N``, the first call of
+    each argument shape and ``tag``, up to N of them.  Recording launches
+    nothing; ``restore`` puts the originals back."""
+
+    def __init__(self):
+        self.calls, self.on, self.tag, self._saved = {}, False, "", []
+
+    @staticmethod
+    def keep(x):
+        import torch
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (list, tuple)):
+            return type(x)(CallRecorder.keep(v) for v in x)
+        if isinstance(x, dict):
+            return {k: CallRecorder.keep(v) for k, v in x.items()}
+        return x
+
+    @staticmethod
+    def shape_key(x):
+        import torch
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), str(x.dtype))
+        if isinstance(x, (list, tuple)):
+            return tuple(CallRecorder.shape_key(v) for v in x)
+        if isinstance(x, dict):
+            return tuple((k, CallRecorder.shape_key(v)) for k, v in sorted(x.items()))
+        return x if isinstance(x, (int, float, bool, str, type(None))) else type(x).__name__
+
+    def wrap(self, mod, name, label, first=0):
+        fn = getattr(mod, name)
+        self._saved.append((mod, name, fn))
+        calls, keys = self.calls.setdefault(label, []), set()
+
+        def recorded(*a, **k):
+            if first:
+                key = (self.tag, self.shape_key(a), self.shape_key(k))
+                if key not in keys and len(keys) < first:
+                    keys.add(key)
+                    calls.append((self.tag, self.keep(a), self.keep(k)))
+            elif self.on:
+                calls.append((self.tag, self.keep(a), self.keep(k)))
+            return fn(*a, **k)
+        setattr(mod, name, recorded)
+
+    def restore(self):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+
+def hold_calibration_kernels(rec, tcfg):
+    """Phase 10 (c)'s kernels against their plain versions on the card, on
+    the arguments ``rec`` kept from the session: the last frame's K1 (the
+    two cameras' pyramid), half-samples, fused searches (coarse K =
+    tcfg.coarse_max, fine K = tcfg.max_patches_per_frame, each on the
+    camera's call that finds the most) and K3 (C = 2),
+    the first ZO_HOLDS window gathers of distinct shapes, and K4 on
+    the first Schur system of each size the bundles solved (the frames'
+    BA, calib_init's and calib_step's), each beside random SPD of its n.
+    Phase 3's tolerances: K1, K2's gather, K6/K7 exact; the search as
+    ``check_search``; K3 within ESM_TOL; K4 within SPD_BACKWARD_TOL
+    backward error on the Schur systems and SPD_TOL relative on random
+    SPD.  Returns {kernel: [row, ...]}, each row tagged with the phase."""
+    import torch
+    from mcptam_tpu_torch.core.spd import route, spd_solve, spd_solve_reference
+    from mcptam_tpu_torch.ops.gather_kernel import gather_windows, gather_windows_reference
+    from mcptam_tpu_torch.ops.search_kernel import search_patches
+
+    rows = {}
+
+    def add(kernel, row):
+        rows.setdefault(kernel, []).append({"phase": "calibration", **row})
+
+    print("calibration (c) kernels against their plain versions at the session's shapes:")
+    for _, (pyr,), _ in rec.calls["fast_frontend"]:
+        err, ms, plain_ms, (b_ms, b_by), _ = hold_fast(list(pyr))
+        add("fast_frontend", {"shape": [list(p.shape) for p in pyr], "max_abs_err": err,
+                              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": None})
+        print(f"  fast_frontend levels {[tuple(p.shape) for p in pyr]}: exact, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+    halves = sorted((a[0] for _, a, _ in rec.calls["half_sample"]), key=lambda x: -x.numel())
+    _, ms, plain_ms, (b_ms, b_by), lib_ms = hold_half_sample(halves)
+    add("half_sample", {"shape": list(halves[0].shape), "calls_held": len(halves),
+                        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms})
+    print(f"  half_sample: {len(halves)} calls exact, shapes "
+          f"{sorted({tuple(x.shape) for x in halves}, reverse=True)}; at "
+          f"{tuple(halves[0].shape)} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, avg_pool2d "
+          f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+    searches = [(a, k) for _, a, k in rec.calls["search_patches"]]
+    # each stage is held on the kept call that finds the most
+    searches.sort(key=lambda c: -int(search_patches(*c[0], **c[1])[0].sum()))
+    _, search_rows = check_search(searches, tcfg)
+    for r in search_rows:
+        add("search_patches", r)
+
+    _, esm_rows = hold_esm([(a, k.get("n_iterations", 9))
+                            for _, a, k in rec.calls["esm_align_all"]])
+    for r in esm_rows:
+        add("esm_align_all", r)
+
+    gathers = rec.calls["gather_windows"]
+    for _, (pl, rows_, cols, G), _ in gathers:
+        got, ref = gather_windows(pl, rows_, cols, G), gather_windows_reference(pl, rows_, cols, G)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"gather_windows {pl.dtype} K={rows_.shape[0]} G={G} differs")
+    _, (pl, rows_, cols, G), _ = max(gathers, key=lambda c: c[1][1].numel() * c[1][3] ** 2)
+    K = rows_.shape[0]
+    ms = time_ms(lambda: gather_windows(pl, rows_, cols, G))
+    plain_ms = time_ms(lambda: gather_windows_reference(pl, rows_, cols, G))
+    b_ms, b_by = bound(K * G * G * pl.element_size() * 2 + K * 2 * 8, 0)
+    add("gather_windows", {"K": K, "G": G, "dtype": str(pl.dtype).replace("torch.", ""),
+                           "calls_held": len(gathers), "max_abs_err": 0.0, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": None})
+    print(f"  gather_windows: {len(gathers)} calls exact, (K, G, dtype) "
+          f"{[(c[1][1].shape[0], c[1][3], str(c[1][0].dtype)) for c in gathers]}; at K={K} "
+          f"G={G} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+    gen = torch.Generator().manual_seed(13)
+    timed = set()
+    for tag, (A, b), _ in rec.calls["spd_solve"]:
+        n, dev = A.shape[0], A.device
+        B = b.reshape(n, -1)
+        rA, rb = random_spd(n, gen, dev), torch.randn(n, 1, generator=gen).to(dev)
+        x, x_plain = spd_solve(A, B), spd_solve_reference(A, B)
+        rx, rx_plain = spd_solve(rA, rb), spd_solve_reference(rA, rb)
+        torch.cuda.synchronize()
+        bwd, bwd_plain = backward_error(A, x, B), backward_error(A, x_plain, B)
+        d = (rx - rx_plain).abs().max().item()
+        rel = d / max(rx_plain.abs().max().item(), 1e-30)
+        kappa = float(torch.linalg.cond(A.double()))
+        print(f"  spd_solve n={n} ({route(n, B.shape[1])}), the first Schur system of {tag}: "
+              f"backward error {bwd:.3g} (plain {bwd_plain:.3g}), kappa {kappa:.3g}; random "
+              f"SPD n={n}: rel err vs plain {rel:.3g}")
+        if not (torch.isfinite(x).all() and bwd <= SPD_BACKWARD_TOL
+                and torch.isfinite(rx).all() and rel <= SPD_TOL):
+            raise AssertionError(f"spd_solve n={n} ({tag}): Schur backward error {bwd} "
+                                 f"(<= {SPD_BACKWARD_TOL}; plain {bwd_plain}), random SPD "
+                                 f"relative error {rel} (<= {SPD_TOL})")
+        row = {"n": n, "system": tag, "route": route(n, B.shape[1]), "max_abs_err": d,
+               "backward_error": bwd, "plain_backward_error": bwd_plain}
+        if n not in timed:
+            timed.add(n)
+            k_ms = time_ms(lambda: spd_solve(A, B))
+            p_ms = time_ms(lambda: spd_solve_reference(A, B))
+            chol_ms = time_ms(lambda: torch.cholesky_solve(B, torch.linalg.cholesky(rA)))
+            b_ms, b_by = bound((n * n + 2 * n) * 4, n ** 3 / 3 + 2 * n * n)
+            row.update({"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": p_ms, "cholesky_solve_ms": chol_ms})
+            print(f"  spd_solve n={n} m={B.shape[1]}: kernel {k_ms:.4f} ms, plain = "
+                  f"torch.linalg.solve {p_ms:.4f} ms, cholesky + cholesky_solve {chol_ms:.4f} "
+                  f"ms, bound {b_ms:.6f} ms ({b_by})")
+        add(route(n, B.shape[1]), row)
+    return rows
+
+
+def camera_margins(tracked, running, C, tcfg):
+    """How close each camera of phase 10 (c) came to being stopped, from
+    every tracking call of the session's own trackers (``tracked``: frame,
+    cam_active, quality, lost, found and attempted per camera) and the
+    session's running flags after each frame: frames tracked and GOOD, the
+    frames that were not, the peak of the session's streak of frames not
+    GOOD against the ZO_STOP_STREAK that stops a camera, the stops, and the
+    found fraction and count against the tracker's GOOD and BAD thresholds
+    over every GOOD frame and over the last ZO_MARGIN_FRAMES tracked.
+    Prints a line a camera and returns the margins."""
+    from mcptam_tpu_torch.tracker.tracker import QUALITY_GOOD
+
+    out = []
+    for c in range(C):
+        rec = [(i, int(q) == QUALITY_GOOD and not bool(lost), float(f[c]), float(at[c]))
+               for i, ca, q, lost, f, at in tracked if int(ca.long().argmax()) == c]
+        streak = peak = 0
+        for _, good, _, _ in rec:       # calib/pose_calib.py::process_frame's count
+            streak = 0 if good else streak + 1
+            peak = max(peak, streak)
+            streak = 0 if streak >= ZO_STOP_STREAK else streak
+        good = [r for r in rec if r[1]]
+        last = rec[-ZO_MARGIN_FRAMES:]
+        m = {"camera": c, "tracked": len(rec), "good": len(good),
+             "first_frame": rec[0][0] if rec else None,
+             "not_good_frames": [r[0] for r in rec if not r[1]], "streak_peak": peak,
+             "stopped": sum(1 for a, b in zip(running, running[1:]) if a[c] and not b[c]),
+             "good_frac_min": min((r[2] / max(r[3], 1.0) for r in good), default=None),
+             "good_found_min": min((r[2] for r in good), default=None),
+             "last_frac_min": min((r[2] / max(r[3], 1.0) for r in last), default=None),
+             "last_found_min": min((r[2] for r in last), default=None)}
+        out.append(m)
+        print(f"calibration (c) camera {c} margin: tracked {m['tracked']} frames from frame "
+              f"{m['first_frame']}, GOOD on {m['good']}, not GOOD at frames "
+              f"{m['not_good_frames']}; streak of frames not GOOD peaked at "
+              f"{m['streak_peak']} of the {ZO_STOP_STREAK} that stop a camera, stopped "
+              f"{m['stopped']} times; found/attempted min {m['good_frac_min']} over GOOD "
+              f"frames, {m['last_frac_min']} over the last {ZO_MARGIN_FRAMES} (GOOD above "
+              f"{tcfg.quality_good}, BAD below {tcfg.quality_bad}); found min "
+              f"{m['good_found_min']} over GOOD frames, {m['last_found_min']} over the last "
+              f"{ZO_MARGIN_FRAMES} (BAD below {tcfg.min_patches_per_frame})")
+    return out
+
+
+def calib_zero_overlap(card, dev, large_point_test=True):
+    """Phase 10 (c): PoseCalibSession on the zero-overlap rig, then its
+    kernels held against their plain versions at the session's shapes.
+    ``large_point_test`` is the map-maker's (the drive turns it off only
+    because its 128x96 frames leave levels >= 2 nearly featureless; at full
+    size it holds).  Returns the launch counts of the session's frames and
+    final solves, and the kernels' rows."""
     import torch
     from mcptam_tpu_torch import backend
+    from mcptam_tpu_torch.ba import bundle
     from mcptam_tpu_torch.calib import pose_calib
     from mcptam_tpu_torch.calib.board import inner_corner_points
     from mcptam_tpu_torch.config import MapMakerConfig, TrackerConfig
     from mcptam_tpu_torch.core.camera import make_camera, project, stack_cameras
     from mcptam_tpu_torch.core.se3 import SE3
     from mcptam_tpu_torch.io.synthetic import make_sbi_cams, render_rig_board
+    from mcptam_tpu_torch.map import keyframe
+    from mcptam_tpu_torch.ops import batch_patch, pyramid, sbi
+    from mcptam_tpu_torch.tracker import tracker
 
     params = scale_lens(ZO_PARAMS, ZO_SCALE)
     cam = make_camera(params, (W, H), device=dev)
@@ -2105,27 +2346,41 @@ def calib_zero_overlap(card, dev):
     if np.any(detectable.all(1)) or not detectable.any(0).all():
         raise AssertionError(f"zero-overlap scene: board views {detectable.sum(0)}, "
                              f"{int(detectable.all(1).sum())} simultaneous")
+    tcfg = TrackerConfig(max_patches_per_frame=300, coarse_max=30,
+                         max_ssd_per_pixel=500.0)   # the drive's calibration-mode budget
     session = pose_calib.PoseCalibSession(
         cams=cams, cams_sbi=make_sbi_cams(cams, H, W), params9=[params, params],
         board_pts2=board2, H=H, W=W, max_points=1024, max_mkfs=ZO_MAX_MKFS,
-        max_meas=8192,
-        tcfg=TrackerConfig(max_patches_per_frame=300, coarse_max=30,
-                           max_ssd_per_pixel=500.0),   # the drive's calibration-mode budget
-        mcfg=MapMakerConfig(large_point_test=ZO_LARGE_POINT_TEST),
+        max_meas=8192, tcfg=tcfg, mcfg=MapMakerConfig(large_point_test=large_point_test),
         max_scaled_kf_dist=ZO_KF_DIST)
 
-    lm_calls = []
-    lm_run = pose_calib.lm_run
+    lm_calls, tracked, running, frame = [], [], [], [0]
+    lm_run, track = pose_calib.lm_run, pose_calib.track_frame
 
     def recorded(prob, st, cams_, n_steps, *a, **k):
         lm_calls.append((6 * (prob.movable_a.shape[0] + prob.movable_b.shape[0]), n_steps))
         return lm_run(prob, st, cams_, n_steps, *a, **k)
 
+    def tracking(ts, *a, **k):
+        ts_new, res = track(ts, *a, **k)
+        if any(ts is t for t in session.trackers):     # not a twin-arbitration probe
+            tracked.append((frame[0], k["cam_active"], res.quality, res.lost,
+                            res.num_found, res.num_attempted))
+        return ts_new, res
+
+    rec = CallRecorder()
+    rec.wrap(keyframe, "fast_frontend_levels", "fast_frontend")
+    rec.wrap(pyramid, "half_sample", "half_sample")
+    rec.wrap(sbi, "half_sample", "half_sample")
+    rec.wrap(batch_patch, "find_patches", "search_patches")
+    rec.wrap(tracker, "esm_align_all", "esm_align_all")
+    rec.wrap(batch_patch, "gather_windows", "gather_windows", first=ZO_HOLDS)
+    rec.wrap(bundle, "spd_solve", "spd_solve", first=ZO_HOLDS)
     rng = np.random.default_rng(11)
-    pose_calib.lm_run = recorded
+    pose_calib.lm_run, pose_calib.track_frame = recorded, tracking
     backend.reset_launch_counts()
     try:
-        t_frames = 0.0
+        t_frames, rec.tag = 0.0, "the frames' BA"
         for i in range(ZO_FRAMES):
             images = render_rig_board(cams, true_cfb, zo_base_pose(i, dev), SEED, H, W,
                                       ZO_SQUARES, ZO_SQ)
@@ -2136,19 +2391,24 @@ def calib_zero_overlap(card, dev):
                     uvn = uv.cpu().numpy() + rng.normal(size=(len(board2), 2)) * ZO_NOISE_PX
                     okn = ok.cpu().numpy()
                     detections[c] = (uvn[okn], np.nonzero(okn)[0])
+            frame[0], rec.on = i, i == ZO_FRAMES - 1     # the last frame's calls are kept
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             session.process_frame(images, detections)
             torch.cuda.synchronize()
             t_frames += time.perf_counter() - t0
-        n_frame_calls = len(lm_calls)
+            running.append(list(session.running))
+        n_frame_calls, rec.on = len(lm_calls), False
         t0 = time.perf_counter()
+        rec.tag = "calib_init"
         session.calib_init()
+        rec.tag = "calib_step"
         session.calib_step(40)
         torch.cuda.synchronize()
         t_final = time.perf_counter() - t0
     finally:
-        pose_calib.lm_run = lm_run
+        pose_calib.lm_run, pose_calib.track_frame = lm_run, track
+        rec.restore()
     launches = backend.kernel_report()
 
     rot, trans = rel_errors(session.cam_from_base[1], true_rel)
@@ -2164,6 +2424,8 @@ def calib_zero_overlap(card, dev):
           f"in {n_frame_calls} chunks + final {[n for _, n in lm_calls[n_frame_calls:]]}, "
           f"Schur sizes n = {sizes}; rotation error {rot:.3e}, translation error "
           f"{trans:.3e} m; launches {launches}")
+    camera_margins(tracked, running, session.C, tcfg)
+    rows = hold_calibration_kernels(rec, tcfg)
     if session.running != [True, True] or groups_full <= 0:
         raise AssertionError(f"zero-overlap session: running {session.running}, "
                              f"{groups_full} groups with both cameras")
@@ -2177,11 +2439,11 @@ def calib_zero_overlap(card, dev):
               "spd_solve_blocked"):
         if launches[k] <= 0:
             raise AssertionError(f"calibration: kernel {k} never launched")
-    return launches
+    return launches, rows
 
 
 def phase_calibration(card, dev):
-    """Phase 10.  Returns (c)'s launch counts."""
+    """Phase 10.  Returns (c)'s launch counts and its kernels' rows."""
     import tempfile
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
@@ -2395,7 +2657,9 @@ def main() -> int:
 
     # ---- 10. calibration: both calibrator apps, then the zero-overlap
     # pose-calibration session
-    launches_calib = phase_calibration(card, dev)
+    launches_calib, calib_rows = phase_calibration(card, dev)
+    for k, rows in calib_rows.items():
+        sizes.setdefault(k, []).extend(rows)
     launches = dict(launches_live)
     # BA's kernels are read from their own paths: K4 from mapping, K5 and
     # K4's global path from LM

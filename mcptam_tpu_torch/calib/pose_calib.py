@@ -29,7 +29,7 @@ src/BundleAdjusterSingle.cc:55-120).
 Each frame runs the port's kernels through the calls it makes: the FAST
 front-end and the half-sample pyramid (``make_frame_features``), the fused
 patch search and ESM (``track_frame``), the window gather
-(``integrate_mkf_device``) and the Cholesky solve of the bundles'
+(``integrate_mkf``) and the Cholesky solve of the bundles'
 reduced systems (``lm_run``, routed by ``core/spd.route``).  The session
 reads each tracked camera's quality and loss, and an integration's
 acceptance, back to the host: they steer the reference's control flow.
@@ -53,9 +53,9 @@ from mcptam_tpu_torch.core.camera import CameraModel
 from mcptam_tpu_torch.core.se3 import SE3, so3_exp, so3_ln
 from mcptam_tpu_torch.map.builder import add_measurements, add_points, commit_mkf
 from mcptam_tpu_torch.map.keyframe import FrameFeatures, make_frame_features
-from mcptam_tpu_torch.map.mapmaker_core import integrate_mkf_device
+from mcptam_tpu_torch.map.mapmaker_core import integrate_mkf
 from mcptam_tpu_torch.map.state import (
-    SRC_ROOT, MapState, clone_tree, create_map_state, kf_cam_from_world,
+    SRC_ROOT, MapState, create_map_state, kf_cam_from_world,
     refresh_scene_depths,
 )
 from mcptam_tpu_torch.tracker.tracker import (
@@ -353,13 +353,10 @@ class PoseCalibSession:
             for c, res in results.items():
                 if not good[c]:
                     continue
-                ms2, mkf_idx, n_large, slot_ok = integrate_mkf_device(
-                    clone_tree(self.ms), self.cams, feats, res.pose, res, self.mcfg,
+                self.ms, mkf_idx, accepted = integrate_mkf(
+                    self.ms, self.cams, feats, res.pose, res, self.mcfg,
                     cam_active=_one_hot(self.C, c, self.device))
-                accepted = bool(slot_ok) and (not self.mcfg.large_point_test
-                                              or int(n_large) > 0)
                 if accepted:
-                    self.ms = ms2
                     slot = int(mkf_idx)
                     group[c] = slot
                     if c in detections:
