@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's tracking, mapping and live paths, its
-`mcptam` app, its client/server split and its calibration once on one
-NVIDIA GPU.
+`mcptam` app, its client/server split, its calibration and its sharded
+(parallel/mesh.py) functions once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -31,8 +31,10 @@ Phases, each fatal on failure:
      frame pair (3840; consecutive trajectory frames and a pair turned
      apart, candidates moved onto the level borders; bit-exact, timed
      beside the path it replaced in turns, and its device operations
-     against that path's), and make_sbi with ESM on a 480x752 rig, whose
-     SBI needs the linear resize;
+     against that path's), make_sbi with ESM on a 480x752 rig, whose
+     SBI needs the linear resize, and FAST on the row slabs of a frame
+     sharded over two ranks, its histograms over each rank's own rows
+     (bit-exact);
   4. the tracking slice: render the 4-camera 480x640 rig and build the
      ground-truth map on the card, then run System.process_frames over
      the 128-pose benchmark trajectory in batches of 8 with the
@@ -99,7 +101,22 @@ Phases, each fatal on failure:
      calib_step(40), gated as that drive is (both cameras running, a sync
      group of both, the extrinsic's rotation and translation errors); it
      prints frames/s, MKFs and groups, the BA's LM steps and the Schur
-     sizes they solved.
+     sizes they solved;
+ 11. parallel (parallel/mesh.py), at phase 4's scene and phase 5's
+     problems: (a) world 1 over NCCL in this process, each sharded
+     function held bit-identical to the unsharded port and timed beside
+     it: sharded_lm_run_soa for 10 steps on phase 5's problem (n = 96, the
+     shared K4) and in a 64-MKF capacity (n = 384, K4's global route),
+     sharded_lm_run for 3 steps on that problem without an observation
+     table, sharded_epipolar_match on the epipolar call of an MKF
+     integrated into the ground-truth map, sharded_track_frame on 8
+     trajectory frames whose features come from sharded_frame_features
+     on (4,480,640); (b) the same at world 2, two processes on the card in
+     a gloo group: every rank's results and Schur matrices identical, the
+     features, the tracker's and the epipolar search's integers exact and
+     floats within tolerance, each LM run's first step's reduced system
+     within 1e-5 of the unsharded one with the median exact, the final
+     costs within 1e-4.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the FAST front-end must launch once a frame (phase 6 adds the features the
@@ -238,6 +255,39 @@ ZO_HOLDS = 8
 # GOOD (calib/pose_calib.py::process_frame); (c) prints how close each
 # camera came, over all its frames and the last ZO_MARGIN_FRAMES
 ZO_STOP_STREAK, ZO_MARGIN_FRAMES = 5, 8
+# the parallel phase (parallel/mesh.py): (b)'s world runs as that many
+# processes on the one card under gloo (NCCL refuses two ranks on one GPU);
+# LM steps on phase 5's problem and its 64-MKF capacity, steps of the
+# problem without an observation table, tracked trajectory frames, the
+# pose the integrated MKF (the epipolar call's source) is taken at
+PAR_WORLD, PAR_LM_STEPS, PAR_SCATTER_STEPS, PAR_TRACK_FRAMES = 2, 10, 3, 8
+PAR_MKF_POSE = N_WARMUP // 4
+# (b) against the unsharded run: the first LM step from the same state
+# solves a reduced system summed in another order, within PAR_SCHUR_TOL of
+# the unsharded one relative to its largest entry (float32 sums of 8192
+# terms), with the median sigma exact, and its whole state is held: the
+# accept flag exact, poses within PAR_POSE_TOL, the back-substituted
+# points within PAR_POINT_TOL; the later steps of a float32 LM, undamped
+# to lambda 1e-8 on a Schur matrix of kappa ~1e7, part ways under any
+# change in the order of its sums, so after them only the final cost is
+# held, within PAR_COST_TOL, and the counts and the poses' and points'
+# differences are printed
+PAR_SCHUR_TOL, PAR_COST_TOL = 1e-5, 1e-4
+# the LM path without a table accumulates its normal equations with
+# index_put_/index_add_, atomics on the card, so two unsharded runs differ
+# too: it is held within PAR_COST_TOL and PAR_POSE_TOL at every world size
+# tests/test_parallel.py's tolerances (rtol, atol): poses, points, and the
+# epipolar search's target positions.  Its triangulated points are held
+# to the point tolerance: on the card each rank's Q/2 candidates go
+# through batched products that round otherwise than at Q (cuBLAS picks
+# its kernels by shape), and the midpoint triangulation turns a target
+# position 1.5e-5 px off into a point ~1e-4 relative off (on an H100, 34
+# of phase 11's 42 matched points moved, at most 1.24e-4 relative).  (b)
+# checks that cause: the unsharded search called on each half of Q in one
+# process gives the world's result bit for bit
+PAR_POSE_TOL, PAR_POINT_TOL, PAR_EPI_UV_TOL = (1e-4, 1e-5), (1e-3, 1e-4), (1e-4, 1e-3)
+PAR_EPI_POS_TOL = PAR_POINT_TOL
+PAR_TIMEOUT_S = 600
 # the H100 SXM's published peaks: HBM bytes/s and f32 operations/s outside
 # the tensor cores
 PEAK_BYTES_S, PEAK_F32_OPS_S = 3.35e12, 67e12
@@ -347,10 +397,40 @@ def time_ms(fn, reps: int = 20, windows: int = 3) -> float:
 
 
 def check_fast(images):
-    """K1 on the four pyramid levels of a rendered frame (``hold_fast``)."""
+    """K1 on the four pyramid levels of a rendered frame (``hold_fast``),
+    and on its row slabs as PAR_WORLD ranks of a sharded frame build them
+    (``hold_fast_slabs``)."""
     from mcptam_tpu_torch.ops.pyramid import build_pyramid
 
+    hold_fast_slabs(images, PAR_WORLD)
     return hold_fast([p.contiguous() for p in build_pyramid(images)])
+
+
+def hold_fast_slabs(images, world: int):
+    """K1's slab form: each rank's slab of rows (its rows and the halo) in
+    one launch with the histograms over its own rows of each level
+    (map/keyframe.py::row_slab), exact against the plain version on the
+    same slab and rows."""
+    import torch
+    from mcptam_tpu_torch.map.keyframe import row_slab
+    from mcptam_tpu_torch.ops.fast_kernel import fast_frontend_levels, fast_frontend_reference
+    from mcptam_tpu_torch.ops.pyramid import build_pyramid
+
+    for rank in range(world):
+        r0, r1, s0, s1, rows = row_slab(images.shape[1], rank, world)
+        pyr = [p.contiguous() for p in build_pyramid(images[:, s0:s1])]
+        got = fast_frontend_levels(pyr, rows=rows)
+        for lvl, (p, g, rr) in enumerate(zip(pyr, got, rows)):
+            ref = fast_frontend_reference(p, rows=rr)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("score", "nm", "freq", "freq_nm"), g, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"fast_frontend slab of rank {rank}/{world} level {lvl} {name} "
+                        f"differs: max |d| {(a - b).abs().max().item()}")
+        print(f"kernel fast_frontend on rank {rank} of {world}'s slab: rows [{r0}, {r1}) "
+              f"of {images.shape[1]}, slab [{s0}, {s1}), histogram rows per level {rows}: "
+              f"exact")
 
 
 def hold_fast(pyr):
@@ -2471,6 +2551,481 @@ def planar_cloud(rng, n_plane=N_PLANE, n_out=20, N=128):
     return pts, valid
 
 
+def parallel_inputs(cams, cfb, cams_sbi, frames, dev):
+    """Phase 11's inputs: phase 5's LM problem with its observation table,
+    the same in a 64-MKF capacity and without a table, a ground-truth map
+    into which one MKF (the frame at excursion pose PAR_MKF_POSE) was
+    integrated, and the arguments of that integration's epipolar call
+    with the most wanted candidates (Q divisible by PAR_WORLD)."""
+    import torch
+    from mcptam_tpu_torch.config import MapMakerConfig, TrackerConfig
+    from mcptam_tpu_torch.core.se3 import SE3
+    from mcptam_tpu_torch.io.synthetic import build_groundtruth_map, render_rig
+    from mcptam_tpu_torch.map import epipolar
+    from mcptam_tpu_torch.map.keyframe import make_frame_features
+    from mcptam_tpu_torch.map.mapmaker_core import integrate_mkf_device
+    from mcptam_tpu_torch.tracker.tracker import create_tracker_state
+
+    prob, lm_cams = lm_problem(dev)
+    ms, _ = build_groundtruth_map(
+        cams, cfb, H, W, n_per_level=N_PER_LEVEL, max_points=MAX_POINTS,
+        max_mkfs=MAX_MKFS, max_meas=MAX_MEAS)
+    pose = SE3.exp(torch.tensor(excursion_tangent(PAR_MKF_POSE), dtype=torch.float32,
+                                device=dev))
+    img = torch.clamp(render_rig(cams, cfb, pose, SEED, H, W), 0, 255).to(torch.uint8)
+    best, match = {}, epipolar.epipolar_match
+
+    def recorded(ms_, cams_, *args, **kw):
+        cand = args[:7]                       # (src_mkf, ..., xy_level, want)
+        opts = dict(zip(("max_ssd", "n_hypotheses", "corner_ambiguity"), args[7:]), **kw)
+        n_want = int(cand[-1].sum())
+        if cand[-1].shape[0] % PAR_WORLD == 0 and n_want > best.get("n_want", -1):
+            best.update(n_want=n_want, cand=tuple(x.clone() for x in cand), kw=opts)
+        return match(ms_, cams_, *args, **kw)
+
+    epipolar.epipolar_match = recorded
+    try:
+        ms, _, _, _ = integrate_mkf_device(ms, cams, make_frame_features(img), pose,
+                                           mcfg=MapMakerConfig(),
+                                           cap_per_level=EPI_CAP_PER_LEVEL)
+    finally:
+        epipolar.epipolar_match = match
+    return dict(cams=cams, cams_sbi=cams_sbi, ms=ms, frames=frames[:PAR_TRACK_FRAMES],
+                prob=prob, cap=pad_poses(prob, CAPACITY_MKFS), lm_cams=lm_cams,
+                prob_nt=prob.replace(obs_idx=None, obs_valid=None, obs_dropped=None),
+                epi=best["cand"], epi_kw=best["kw"], tcfg=TrackerConfig(),
+                ts=create_tracker_state(C, device=dev))
+
+
+def _to(tree, dev):
+    """A tree of dataclasses, tuples, lists and dicts with its tensors on
+    ``dev``."""
+    import dataclasses
+    import torch
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: _to(getattr(tree, f.name), dev)
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, dev) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def parallel_drive(inp, mesh=None):
+    """Phase 11's functions on ``inp``: sharded over ``mesh``, or the
+    unsharded port functions for mesh None.  Returns (results on the CPU,
+    {function: seconds}, {LM run: the Schur systems it solved, as (sha256
+    of the matrix, matrix, rhs), the matrix and rhs of the first step
+    only})."""
+    import hashlib
+    import torch
+    from mcptam_tpu_torch.ba import bundle
+    from mcptam_tpu_torch.ba.bundle import create_lm_state, lm_run
+    from mcptam_tpu_torch.map.epipolar import epipolar_match
+    from mcptam_tpu_torch.map.keyframe import make_frame_features
+    from mcptam_tpu_torch.parallel import mesh as M
+    from mcptam_tpu_torch.tracker.tracker import track_frame
+
+    out, secs, schur = {}, {}, {}
+    on_card = inp["frames"][0].is_cuda
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        out[name] = _to(r, "cpu")
+        return r
+
+    if mesh is None:
+        features = make_frame_features
+        ms = inp["ms"]
+
+        def track(ts, feats):
+            return track_frame(ts, ms, inp["cams"], inp["cams_sbi"], feats, inp["tcfg"])
+
+        def lm(key, steps):
+            prob = inp[key]
+            st = create_lm_state(prob)
+            return lm_run(prob, st, inp["lm_cams"], steps, fixed_b=key != "prob_nt")
+        epi = epipolar_match
+    else:
+        features = M.sharded_frame_features(mesh, inp["frames"][0])[0]
+        tracker, ms = M.sharded_track_frame(mesh, inp["ms"], inp["cams"], inp["cams_sbi"],
+                                            inp["tcfg"])
+
+        def track(ts, feats):
+            return tracker(ts, ms, feats)
+
+        def lm(key, steps):
+            if key == "prob_nt":
+                return M.sharded_lm_run(mesh, inp[key], inp["lm_cams"], steps)[0]
+            return M.sharded_lm_run_soa(mesh, inp[key], inp["lm_cams"], steps)[0]
+        epi = M.sharded_epipolar_match(mesh)
+
+    def frames_tracked():
+        ts, results = inp["ts"], []
+        for img in inp["frames"]:
+            ts, res = track(ts, features(img))
+            results.append((ts.pose, res))
+        return results
+
+    timed("frame_features", lambda: features(inp["frames"][0]))
+    timed("track_frame", frames_tracked)
+    timed("epipolar_match", lambda: epi(inp["ms"], inp["cams"], *inp["epi"], **inp["epi_kw"]))
+    solve = bundle.spd_solve
+    for key in ("prob", "cap"):
+        for tag, steps in (("first", 1), ("", PAR_LM_STEPS)):
+            kept = schur.setdefault(f"{key}{tag}", [])
+
+            def keeping(A, b, kept=kept):
+                kept.append((A.clone(), b.clone()))   # no host sync inside the run
+                return solve(A, b)
+
+            bundle.spd_solve = keeping
+            try:
+                timed(f"lm_{key}{tag}", lambda: lm(key, steps))
+            finally:
+                bundle.spd_solve = solve
+    timed("lm_scatter", lambda: lm("prob_nt", PAR_SCATTER_STEPS))
+    schur = {run: [(hashlib.sha256(A.cpu().numpy().tobytes()).hexdigest(),
+                    A.cpu() if i == 0 else None, b.cpu() if i == 0 else None)
+                   for i, (A, b) in enumerate(kept)] for run, kept in schur.items()}
+    return out, secs, schur
+
+
+def parallel_rank(rank: int, world: int, root: str, dev_type: str):
+    """One rank of phase 11 (b): a process on cuda:0 (or the CPU, for a
+    rehearsal) in a gloo group over a file store under ``root``; runs
+    ``parallel_drive`` on the inputs the phase saved there and saves what
+    it got."""
+    import pickle
+    import traceback
+    import torch
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import mcptam_tpu_torch  # noqa: F401  (sets the TF32 flags)
+        from mcptam_tpu_torch import backend
+        from mcptam_tpu_torch.csrc._build import load
+        from mcptam_tpu_torch.parallel import mesh as M
+
+        dev = torch.device("cuda", 0) if dev_type == "cuda" else torch.device("cpu")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            load()
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"),
+                                                             world),
+                                rank=rank, world_size=world)
+        try:
+            mesh = M.make_mesh(device=dev.type, backend="gloo")
+            with open(os.path.join(root, "inputs.pkl"), "rb") as f:
+                inp = _to(pickle.load(f), dev)
+            backend.reset_launch_counts()
+            got = parallel_drive(inp, mesh)
+            launches = backend.kernel_report()
+            # timed again, warm: the first run in a new process starts its
+            # kernels and libraries cold
+            got = got[0], parallel_drive(inp, mesh)[1], got[2]
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump((got, launches), f)
+    except BaseException:
+        with open(os.path.join(root, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _flat(tree, prefix=""):
+    """{path: tensor} of a result tree."""
+    import dataclasses
+    import torch
+    if dataclasses.is_dataclass(tree):
+        tree = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+    if isinstance(tree, (tuple, list)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}.{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree} if isinstance(tree, torch.Tensor) else {}
+
+
+def _differences(a, b) -> list:
+    """The leaves of two result trees that are not bit-identical, with the
+    largest difference of each."""
+    import torch
+    fa, fb = _flat(a), _flat(b)
+    diff = []
+    for k in fa:
+        x, y = fa[k], fb[k]
+        if x.shape != y.shape or not torch.equal(x, y):
+            d = ((x.double() - y.double()).abs().max().item()
+                 if x.shape == y.shape and x.numel() else float("nan"))
+            diff.append((k, d))
+    return diff
+
+
+def spawn_ranks(world: int, inp, card: str):
+    """Phase 11 (b)'s ranks as processes on the card; every one is joined
+    (or ended at PAR_TIMEOUT_S).  Returns each rank's (results, launches)."""
+    import multiprocessing
+    import pickle
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        with open(os.path.join(root, "inputs.pkl"), "wb") as f:
+            pickle.dump(_to(inp, "cpu"), f)
+        ctx = multiprocessing.get_context("spawn")
+        dev_type = inp["frames"][0].device.type
+        procs = [ctx.Process(target=parallel_rank, args=(r, world, root, dev_type))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = t0 + PAR_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1.0))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+        print(f"parallel (b): {world} ranks on {card} under gloo ran in "
+              f"{time.perf_counter() - t0:.2f} s (process start included)")
+        outs = []
+        for r, p in enumerate(procs):
+            path = os.path.join(root, f"rank{r}.pkl")
+            if p.exitcode != 0 or not os.path.exists(path):
+                err = os.path.join(root, f"rank{r}.err")
+                msg = "no traceback"
+                if os.path.exists(err):
+                    with open(err) as f:
+                        msg = f.read()
+                raise AssertionError(f"parallel (b): rank {r} exited with {p.exitcode}:\n{msg}")
+            with open(path, "rb") as f:
+                outs.append(pickle.load(f))
+        return outs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _close(x, y, rtol, atol) -> bool:
+    import torch
+    return x.shape == y.shape and bool(torch.allclose(x.double(), y.double(), rtol=rtol,
+                                                      atol=atol))
+
+
+def hold_parallel_world(ref, got, schur_ranks, ref_schur, world: int):
+    """Phase 11 (b)'s gates: the frame features and every integer exact,
+    the tracker's and the epipolar search's floats within their
+    tolerances, the Schur systems bit-identical on every rank and the
+    first LM step's within PAR_SCHUR_TOL of the unsharded one, the LM runs'
+    final costs within PAR_COST_TOL.  Prints what differs and by how much."""
+    import torch
+
+    tag, failed = f"parallel (b) world {world}", []
+    diff = _differences(got["frame_features"], ref["frame_features"])
+    if diff:
+        failed.append(f"{tag}: frame features differ: {diff[:8]}")
+    for i, ((p_g, r_g), (p_r, r_r)) in enumerate(zip(got["track_frame"], ref["track_frame"])):
+        fg, fr = _flat(r_g), _flat(r_r)
+        for k in fr:
+            if fr[k].is_floating_point():
+                tol = (0.0, 1e-3) if k == "sel_pos_l0" else PAR_POSE_TOL
+                if not _close(fg[k], fr[k], *tol):
+                    failed.append(f"{tag}: frame {i} {k} beyond {tol}")
+            elif not torch.equal(fg[k], fr[k]):
+                failed.append(f"{tag}: frame {i} {k} differs")
+        if not _close(p_g.t, p_r.t, *PAR_POSE_TOL):
+            failed.append(f"{tag}: frame {i} pose differs")
+    n_exact = sum(not _differences(g, r) for g, r in zip(got["track_frame"], ref["track_frame"]))
+    ok_g, pos_g, uv_g, lvl_g = got["epipolar_match"]
+    ok_r, pos_r, uv_r, lvl_r = ref["epipolar_match"]
+    if not (torch.equal(ok_g, ok_r) and torch.equal(lvl_g[ok_r], lvl_r[ok_r])):
+        failed.append(f"{tag}: epipolar ok/levels differ")
+    d_pos = (pos_g[ok_r] - pos_r[ok_r]).abs().max().item() if ok_r.any() else 0.0
+    d_uv = (uv_g[ok_r] - uv_r[ok_r]).abs().max().item() if ok_r.any() else 0.0
+    if not (_close(pos_g[ok_r], pos_r[ok_r], *PAR_EPI_POS_TOL)
+            and _close(uv_g[ok_r], uv_r[ok_r], *PAR_EPI_UV_TOL)):
+        failed.append(f"{tag}: epipolar positions beyond tolerance: max |d pos_w| "
+                      f"{d_pos:.3g} (tol {PAR_EPI_POS_TOL}), max |d uv| {d_uv:.3g} "
+                      f"(tol {PAR_EPI_UV_TOL})")
+    print(f"{tag}: frame features {'exact' if not diff else 'DIFFER'}; "
+          f"{len(ref['track_frame'])} tracked frames, {n_exact} bit-identical; epipolar "
+          f"{int(ok_r.sum())} matched of {ok_r.shape[0]}, max |d pos_w| {d_pos:.3g}, "
+          f"max |d uv| {d_uv:.3g}")
+    for run, kept in schur_ranks[0].items():
+        for r, other in enumerate(schur_ranks[1:], 1):
+            if [h for h, _, _ in other[run]] != [h for h, _, _ in kept]:
+                failed.append(f"{tag}: rank {r}'s Schur matrices differ from rank 0's "
+                              f"in run {run}")
+        print(f"{tag}: {run}: the {len(kept)} Schur matrices solved are bit-identical on "
+              f"all {world} ranks (sha256 {kept[0][0][:16]}...)")
+    for key in ("prob", "cap"):
+        (_, A_g, b_g), (_, A_r, b_r) = (schur_ranks[0][f"{key}first"][0],
+                                        ref_schur[f"{key}first"][0])
+        rel_a = ((A_g - A_r).abs().max() / A_r.abs().max()).item()
+        rel_b = ((b_g - b_r).abs().max() / b_r.abs().max()).item()
+        s_g, s_r = got[f"lm_{key}first"], ref[f"lm_{key}first"]
+        if not (rel_a <= PAR_SCHUR_TOL and rel_b <= PAR_SCHUR_TOL
+                and torch.equal(s_g.sigma_sq, s_r.sigma_sq)):
+            failed.append(f"{tag}: {key}'s first LM step: Schur matrix {rel_a:.3g}, "
+                          f"rhs {rel_b:.3g} (tol {PAR_SCHUR_TOL}), sigma "
+                          f"{float(s_g.sigma_sq)} vs {float(s_r.sigma_sq)}")
+        d_t1 = (s_g.pose_a.t - s_r.pose_a.t).abs().max().item()
+        d_r1 = (s_g.pose_a.R - s_r.pose_a.R).abs().max().item()
+        d_p1 = (s_g.points - s_r.points).abs().max().item()
+        print(f"{tag}: lm {key}'s first step: accepted {int(s_g.accepted)} vs "
+              f"{int(s_r.accepted)}, cost {float(s_g.cost):.7g} vs {float(s_r.cost):.7g}, "
+              f"max |d pose t| {d_t1:.3g}, max |d pose R| {d_r1:.3g} (tol {PAR_POSE_TOL}), "
+              f"max |d point| {d_p1:.3g} (tol {PAR_POINT_TOL})")
+        if not (int(s_g.accepted) == int(s_r.accepted)
+                and _close(s_g.pose_a.t, s_r.pose_a.t, *PAR_POSE_TOL)
+                and _close(s_g.pose_a.R, s_r.pose_a.R, *PAR_POSE_TOL)
+                and _close(s_g.points, s_r.points, *PAR_POINT_TOL)):
+            failed.append(f"{tag}: {key}'s first LM step's state beyond tolerance")
+        g, r = got[f"lm_{key}"], ref[f"lm_{key}"]
+        rel = abs(float(g.cost) - float(r.cost)) / float(r.cost)
+        print(f"{tag}: lm {key} (n = {A_r.shape[0]}): first step's Schur matrix within "
+              f"{rel_a:.3g} and rhs {rel_b:.3g} of the unsharded (tol {PAR_SCHUR_TOL}), sigma^2 "
+              f"exact; after {PAR_LM_STEPS} steps cost {float(g.cost):.7g} vs {float(r.cost):.7g} "
+              f"(rel {rel:.3g}, tol {PAR_COST_TOL}), accepted {int(g.accepted)} vs "
+              f"{int(r.accepted)}, iterations {int(g.iterations)} vs {int(r.iterations)}, "
+              f"max |d pose t| {(g.pose_a.t - r.pose_a.t).abs().max().item():.3g}, "
+              f"max |d point| {(g.points - r.points).abs().max().item():.3g}")
+        if not rel <= PAR_COST_TOL:
+            failed.append(f"{tag}: lm {key} final cost rel {rel} > {PAR_COST_TOL}")
+    try:
+        hold_scatter(got["lm_scatter"], ref["lm_scatter"], tag)
+    except AssertionError as e:
+        failed.append(str(e))
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def hold_epipolar_parts(inp, got, ref, world: int):
+    """The cause of the epipolar search's differences at ``world`` ranks:
+    the unsharded search called here on each rank's part of the Q
+    candidates, in turn, gives the world's result bit for bit, and so
+    differs from the search over all Q as much as the world does."""
+    import torch
+    from mcptam_tpu_torch.map.epipolar import epipolar_match
+
+    Q = inp["epi"][0].shape[0]
+    parts = [epipolar_match(inp["ms"], inp["cams"], *(a[i * Q // world:(i + 1) * Q // world]
+                                                      for a in inp["epi"]), **inp["epi_kw"])
+             for i in range(world)]
+    cat = _to(tuple(torch.cat(x) for x in zip(*parts)), "cpu")
+    ok = ref[0]
+    d_pos = (cat[1][ok] - ref[1][ok]).abs().max().item() if ok.any() else 0.0
+    diff = _differences(cat, got)
+    print(f"parallel (b) world {world}: the unsharded epipolar search on each of the "
+          f"{world} parts of Q = {Q} in one process: max |d pos_w| {d_pos:.3g} against the "
+          f"search over all Q; {'bit-identical' if not diff else f'differs {diff[:4]}'} "
+          f"to the world's result")
+    if diff:
+        raise AssertionError(f"parallel (b): the epipolar search by parts differs from "
+                             f"world {world}'s: {diff[:4]}")
+
+
+def hold_scatter(g, r, tag: str):
+    """The LM run without a table against the unsharded one: cost within
+    PAR_COST_TOL, poses within PAR_POSE_TOL, the same accepted steps."""
+    rel = abs(float(g.cost) - float(r.cost)) / float(r.cost)
+    print(f"{tag}: lm without a table, {PAR_SCATTER_STEPS} steps: cost {float(g.cost):.7g} vs "
+          f"{float(r.cost):.7g} (rel {rel:.3g}, tol {PAR_COST_TOL}), accepted "
+          f"{int(g.accepted)} vs {int(r.accepted)}, max |d pose t| "
+          f"{(g.pose_a.t - r.pose_a.t).abs().max().item():.3g}, max |d point| "
+          f"{(g.points - r.points).abs().max().item():.3g}")
+    if not (rel <= PAR_COST_TOL and _close(g.pose_a.t, r.pose_a.t, *PAR_POSE_TOL)
+            and int(g.accepted) == int(r.accepted)):
+        raise AssertionError(f"{tag}: lm without a table beyond tolerance")
+
+
+def phase_parallel(cams, cfb, cams_sbi, frames, card, dev):
+    """Phase 11.  Returns the launch counts of (a)'s sharded drive."""
+    import torch
+    from mcptam_tpu_torch import backend
+    from mcptam_tpu_torch.parallel import mesh as M
+
+    t0 = time.perf_counter()
+    inp = parallel_inputs(cams, cfb, cams_sbi, frames, dev)
+    Q, n_want = inp["epi"][-1].shape[0], int(inp["epi"][-1].sum())
+    print(f"parallel: inputs in {time.perf_counter() - t0:.2f} s: LM 16 poses / 2048 points / "
+          f"{inp['prob'].m_valid.shape[0]} measurements (n = 96) and at {CAPACITY_MKFS} MKFs "
+          f"(n = {6 * CAPACITY_MKFS}); the map after integrating the MKF at excursion pose "
+          f"{PAR_MKF_POSE}; its epipolar call Q = {Q} ({n_want} wanted); "
+          f"{PAR_TRACK_FRAMES} trajectory frames of ({C},{H},{W})")
+    ref, ref_secs, ref_schur = parallel_drive(inp)
+    from mcptam_tpu_torch.ba.bundle import create_lm_state, lm_run
+
+    # (a) world 1 on NCCL, in this process: bit-identical to the unsharded
+    # port; then both timed again, in turns
+    mesh = M.make_mesh(device=dev.type)
+    try:
+        torch.distributed.all_reduce(torch.zeros(1, device=mesh.device))  # NCCL set up
+        backend.reset_launch_counts()
+        got, secs, schur = parallel_drive(inp, mesh)
+        torch.cuda.synchronize()
+        launches = backend.kernel_report()
+        backend_name = torch.distributed.get_backend()
+        ref_secs2 = parallel_drive(inp)[1]
+        secs2 = parallel_drive(inp, mesh)[1]
+    finally:
+        mesh.close()
+    for name in ref_secs:
+        diff = _differences(got[name], ref[name])
+        print(f"parallel (a) world 1 on {backend_name}: {name} {secs[name] * 1e3:.3f} / "
+              f"{secs2[name] * 1e3:.3f} ms sharded, {ref_secs[name] * 1e3:.3f} / "
+              f"{ref_secs2[name] * 1e3:.3f} ms unsharded (in turns: unsharded, sharded, "
+              f"unsharded, sharded), {'bit-identical' if not diff else f'differs {diff[:4]}'} "
+              f"on {card}")
+        if diff and name != "lm_scatter":
+            raise AssertionError(f"parallel (a): {name} at world 1 differs from the "
+                                 f"unsharded port: {diff[:8]}")
+    # the path without a table: two unsharded runs, and world 1, held alike
+    again = _to(lm_run(inp["prob_nt"], create_lm_state(inp["prob_nt"]), inp["lm_cams"],
+                       PAR_SCATTER_STEPS), "cpu")
+    print(f"parallel (a): lm_scatter, a second unsharded run against the first: "
+          f"{_differences(again, ref['lm_scatter'])[:4] or 'bit-identical'}")
+    hold_scatter(got["lm_scatter"], ref["lm_scatter"], "parallel (a) world 1")
+    if [[h for h, _, _ in v] for v in schur.values()] != \
+            [[h for h, _, _ in v] for v in ref_schur.values()]:
+        raise AssertionError("parallel (a): a Schur matrix at world 1 differs from the "
+                             "unsharded port's")
+    for k in ("fast_frontend", "search_patches", "gather_windows", "esm_align_all",
+              "spd_solve_blocked", "spd_solve_blocked_global", "half_sample"):
+        if launches[k] <= 0:
+            raise AssertionError(f"parallel (a): kernel {k} never launched")
+    print(f"parallel (a): launches {launches}")
+
+    # (b) PAR_WORLD processes on the one card under gloo
+    torch.cuda.synchronize()
+    ranks = spawn_ranks(PAR_WORLD, inp, card)
+    (got2, w2_secs, _), _ = ranks[0]
+    for r, ((g, _, _), lr) in enumerate(ranks):
+        diff = _differences(g, got2)
+        if diff:
+            raise AssertionError(f"parallel (b): rank {r}'s results differ from rank 0's: "
+                                 f"{diff[:8]}")
+    for name in ref_secs:
+        print(f"parallel (b) world {PAR_WORLD} on gloo: {name} {w2_secs[name] * 1e3:.3f} ms "
+              f"sharded (rank 0, its second run), {ref_secs2[name] * 1e3:.3f} ms unsharded "
+              f"on {card}")
+    print(f"parallel (b): rank 0's launches {ranks[0][1]}")
+    hold_epipolar_parts(inp, got2["epipolar_match"], ref["epipolar_match"], PAR_WORLD)
+    hold_parallel_world(ref, got2, [r[0][2] for r in ranks], ref_schur, PAR_WORLD)
+    return launches
+
+
 def pose_errors(infos, poses):
     """Per-frame pose error (rotation angle (+) translation), as the
     benchmark's max_pose_err; frame i maps to trajectory pose i % N_POSES."""
@@ -2660,6 +3215,10 @@ def main() -> int:
     launches_calib, calib_rows = phase_calibration(card, dev)
     for k, rows in calib_rows.items():
         sizes.setdefault(k, []).extend(rows)
+
+    # ---- 11. parallel/mesh.py: world 1 on NCCL in this process, then
+    # PAR_WORLD ranks on the one card under gloo
+    launches_par = phase_parallel(cams, cfb, cams_sbi, frames, card, dev)
     launches = dict(launches_live)
     # BA's kernels are read from their own paths: K4 from mapping, K5 and
     # K4's global path from LM
@@ -2667,7 +3226,8 @@ def main() -> int:
     launches.update(launches_lm)
     by_phase = {"tracking": launches_track, "lm": launches_lm,
                 "mapping": launches_map, "live": launches_live, "app": launches_app,
-                "client_server": launches_cs, "calibration": launches_calib}
+                "client_server": launches_cs, "calibration": launches_calib,
+                "parallel": launches_par}
 
     kernels = [
         {"name": k, "route": "cuda", "source": KERNELS[k][0],

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from mcptam_tpu_torch.parallel.collectives import all_reduce
+
 TUKEY = "tukey"
 HUBER = "huber"
 
@@ -32,14 +34,20 @@ def masked_median_bisect(x: torch.Tensor, mask: torch.Tensor,
 
 
 def masked_median_hist(x: torch.Tensor, mask: torch.Tensor,
-                       bins: int = 256, refine: int = 2) -> torch.Tensor:
+                       bins: int = 256, refine: int = 2, group=None) -> torch.Tensor:
     """Lower median of x where mask along the last axis, by hierarchical
     histogram counting: ``refine`` rounds that each count x against
-    ``bins`` edges at once and descend into the median's bin."""
+    ``bins`` edges at once and descend into the median's bin.
+
+    group: a process group whose ranks each hold a part of the values
+    (parallel/mesh.py); the range and count, then each round's bin counts,
+    are reduced over it, so every rank gets the median of the union,
+    exactly: the edges are the same on every rank and the counts are
+    integers."""
     inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
-    lo = torch.amin(torch.where(mask, x, inf), -1)
-    hi = torch.amax(torch.where(mask, x, -inf), -1)
-    n = torch.sum(mask, -1)
+    lo = all_reduce(torch.amin(torch.where(mask, x, inf), -1), group, "min")
+    hi = all_reduce(torch.amax(torch.where(mask, x, -inf), -1), group, "max")
+    n = all_reduce(torch.sum(mask, -1), group)
     ok = n > 0
     zero = torch.zeros_like(lo)
     lo = torch.where(ok, lo, zero)
@@ -48,8 +56,8 @@ def masked_median_hist(x: torch.Tensor, mask: torch.Tensor,
     frac = torch.arange(1, bins + 1, dtype=x.dtype, device=x.device) / bins
     for _ in range(refine):
         edges = lo[..., None] + (hi - lo)[..., None] * frac          # (..., B)
-        cnt = torch.sum((x[..., None, :] <= edges[..., :, None])
-                        & mask[..., None, :], -1)                    # (..., B)
+        cnt = all_reduce(torch.sum((x[..., None, :] <= edges[..., :, None])
+                                   & mask[..., None, :], -1), group)  # (..., B)
         reach = cnt >= half[..., None]
         # first bin whose cumulative count reaches the median rank
         first = torch.argmax(reach.to(torch.int32), -1)

@@ -46,6 +46,10 @@
 //    pixels) and zeroes the counts and the ticket for the next launch.
 //    The wrapper allocates the scratch zeroed once, so a frame takes one
 //    device operation.
+//  * Histogram rows: each level counts only its rows [y_lo, y_hi) (all
+//    of them by default).  A rank of a row-sharded image scores a slab
+//    with halo rows and counts its interior (parallel/mesh.py); the scores
+//    and the nonmax are written for every row either way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +78,7 @@ struct Level {
   float* freq;                               // (C,64)
   float* freq_nm;                            // (C,64)
   int H, W, tiles_x, tiles;                  // tiles of one camera
+  int y_lo, y_hi;                            // rows the histograms count
   int block0;                                // first block of this level
   int vec;                                   // rows 16-byte aligned: float4 staging
 };
@@ -224,8 +229,10 @@ fast_levels_kernel(const Levels P, int* __restrict__ scratch) {
       const size_t o = cam * plane + (size_t)y * W + x;
       Lv.score[o] = c;
       Lv.nm[o] = n;
-      b_s = bin_of(c);
-      b_nm = bin_of(n);
+      if (y >= Lv.y_lo && y < Lv.y_hi) {
+        b_s = bin_of(c);
+        b_nm = bin_of(n);
+      }
     }
     count_bin(b_s, hist[0], ones_s, lane);
     count_bin(b_nm, hist[1], ones_nm, lane);
@@ -267,9 +274,9 @@ fast_levels_kernel(const Levels P, int* __restrict__ scratch) {
 }  // namespace
 
 // ptrs: L x (img, score, nm, freq, freq_nm) device pointers, dims: L x (H,
-// W), both host arrays; img, score, nm: (C,H,W) f32, freq, freq_nm: (C,64)
-// f32.  scratch: L*C*(2*65+2) int32 on the device, zero, left zero.
-// Returns a cudaError_t.
+// W, y_lo, y_hi), both host arrays; img, score, nm: (C,H,W) f32, freq,
+// freq_nm: (C,64) f32 over the rows [y_lo, y_hi).  scratch: L*C*(2*65+2)
+// int32 on the device, zero, left zero.  Returns a cudaError_t.
 extern "C" int mcptam_fast_frontend_levels(const long long* ptrs, const int* dims,
                                            int L, int C, int* scratch,
                                            cudaStream_t stream) {
@@ -285,9 +292,12 @@ extern "C" int mcptam_fast_frontend_levels(const long long* ptrs, const int* dim
     v.nm = reinterpret_cast<float*>(ptrs[5 * l + 2]);
     v.freq = reinterpret_cast<float*>(ptrs[5 * l + 3]);
     v.freq_nm = reinterpret_cast<float*>(ptrs[5 * l + 4]);
-    v.H = dims[2 * l];
-    v.W = dims[2 * l + 1];
-    if (v.H < 1 || v.W < 1) return cudaErrorInvalidValue;
+    v.H = dims[4 * l];
+    v.W = dims[4 * l + 1];
+    v.y_lo = dims[4 * l + 2];
+    v.y_hi = dims[4 * l + 3];
+    if (v.H < 1 || v.W < 1 || v.y_lo < 0 || v.y_lo > v.y_hi || v.y_hi > v.H)
+      return cudaErrorInvalidValue;
     v.tiles_x = (v.W + OUT_W - 1) / OUT_W;
     v.tiles = v.tiles_x * ((v.H + OUT_H - 1) / OUT_H);
     v.block0 = blocks;

@@ -35,11 +35,24 @@ def _cumfreq(x: torch.Tensor) -> torch.Tensor:
     ).to(torch.float32)
 
 
-def fast_frontend_reference(img: torch.Tensor):
-    """Plain version: (C,H,W) f32 -> (score, nm, freq, freq_nm)."""
+def fast_frontend_reference(img: torch.Tensor, rows=None):
+    """Plain version: (C,H,W) f32 -> (score, nm, freq, freq_nm), the
+    histograms over the rows [y0, y1) of ``rows`` (default: all)."""
+    y0, y1 = _row_range(rows, img.shape[1])
     score = fast_score_image(img)
     nm = nonmax_3x3(score)
-    return score, nm, _cumfreq(score), _cumfreq(nm)
+    return score, nm, _cumfreq(score[:, y0:y1]), _cumfreq(nm[:, y0:y1])
+
+
+def _row_range(rows, H: int) -> tuple:
+    """The histogram rows of a level of H rows: ``rows`` = (y0, y1) with
+    0 <= y0 <= y1 <= H, or None for all of them."""
+    if rows is None:
+        return 0, H
+    y0, y1 = (int(r) for r in rows)
+    if not 0 <= y0 <= y1 <= H:
+        raise ValueError(f"histogram rows [{y0}, {y1}) outside a level of {H} rows")
+    return y0, y1
 
 
 def _scratch(device: torch.device, stream: int, n_ints: int) -> torch.Tensor:
@@ -51,17 +64,25 @@ def _scratch(device: torch.device, stream: int, n_ints: int) -> torch.Tensor:
     return buf
 
 
-def fast_frontend_levels(levels) -> list:
+def fast_frontend_levels(levels, rows=None) -> list:
     """Pyramid levels, each (C,H_l,W_l) f32 -> per level (score (C,H_l,W_l),
     nm (C,H_l,W_l), freq (C,NBINS), freq_nm (C,NBINS)).
 
     score/nm: FAST-10 max-threshold score and its strict 3x3 nonmax
     (earlier raster pixel wins ties); freq[c, t] = #(score > t - 1e-6) and
-    freq_nm the same over nm, over the in-image pixels.  On the card one
-    launch computes every level; the outputs are views of one buffer."""
+    freq_nm the same over nm, over the in-image pixels of the rows
+    [y0, y1) that ``rows`` gives each level (default: every row; a row
+    slab of a sharded image counts its interior, parallel/mesh.py).  On
+    the card one launch computes every level; the outputs are views of
+    one buffer."""
     levels = list(levels)
+    rows = [None] * len(levels) if rows is None else list(rows)
+    if len(rows) != len(levels):
+        raise ValueError(f"fast_frontend_levels: {len(rows)} row ranges for "
+                         f"{len(levels)} levels")
+    ranges = [_row_range(r, p.shape[-2]) for r, p in zip(rows, levels)]
     if all(p.device.type == "cpu" for p in levels):
-        return [fast_frontend_reference(p) for p in levels]
+        return [fast_frontend_reference(p, r) for p, r in zip(levels, ranges)]
     dev = levels[0].device
     if dev.type != "cuda" or any(p.device != dev for p in levels):
         raise ValueError("fast_frontend_levels: every level on one CUDA device, got "
@@ -91,9 +112,9 @@ def fast_frontend_levels(levels) -> list:
         for _ in range(2):                    # freq, freq_nm
             out.append(buf[o:o + C * NBINS].view(C, NBINS))
             o += C * NBINS
-    for p, out in zip(levels, outs):
+    for p, out, (y0, y1) in zip(levels, outs, ranges):
         ptrs += [p.data_ptr()] + [t.data_ptr() for t in out]
-        dims += [p.shape[1], p.shape[2]]
+        dims += [p.shape[1], p.shape[2], y0, y1]
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _scratch(dev, stream, L * C * SCRATCH_INTS)
     c_ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)

@@ -15,6 +15,16 @@ Per frame (ref TrackFrame, src/Tracker.cc:409-518):
 
 Every shape is static and nothing syncs with the host: data-dependent
 choices are ``torch.where`` selections, as in the reference.
+
+``track_frame`` takes an optional process group (parallel/mesh.py).  Each
+rank then holds a block of the map's points (``shard_map_points``): it
+projects its own points (the PVS), the valid masks are all-gathered so that
+every rank selects the same pairs in the same global order, each pair is
+searched against its point's rows on the rank that owns the point, and the
+owners' results and the selected points' positions are gathered in
+selection order.  Every rank then runs the pose solves and the finalize
+step on the same inputs as the unsharded tracker, so its result is the
+same, bit for bit.  With no group nothing is gathered.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from mcptam_tpu_torch.ops.atlas import _level0_width_from_atlas, level_size_arra
 from mcptam_tpu_torch.ops.patch import pack_corner_atlas, warp_and_search_level
 from mcptam_tpu_torch.ops.sbi import se3_from_se2
 from mcptam_tpu_torch.ops.sbi_kernel import esm_align_all
+from mcptam_tpu_torch.parallel.collectives import from_owner, gather_cat, rank_world
 
 QUALITY_GOOD = 0
 QUALITY_DODGY = 1
@@ -163,6 +174,57 @@ def _select_pairs(valid_cn, perm, k: int):
     return idx, torch.arange(k, device=perm.device) < n_sel
 
 
+@dataclass
+class _Pairs:
+    """k selected (camera, point) pairs and where their points live: ``pt``
+    is the point's index in the whole map, ``loc`` its row in this rank's
+    shard (0 where another rank owns it), ``flat`` the pair's index in this
+    rank's (C, N) PVS grid, ``owner`` the owning rank (None unsharded)."""
+    cam: torch.Tensor
+    pt: torch.Tensor
+    ok: torch.Tensor
+    loc: torch.Tensor
+    flat: torch.Tensor
+    owner: torch.Tensor = None
+    group: object = None
+
+    def grid(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-pair rows of a (C*N, ...) PVS array, from each pair's owner."""
+        return from_owner(x[self.flat], self.owner, self.group)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-pair rows of an (N, ...) point array, from each pair's owner."""
+        return from_owner(x[self.loc], self.owner, self.group)
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """x, computed for every pair on every rank, taken from the owners."""
+        return from_owner(x, self.owner, self.group)
+
+    def mine(self, ok: torch.Tensor) -> torch.Tensor:
+        """ok, and on a shard only where this rank holds the point."""
+        if self.owner is None:
+            return ok
+        return ok & (self.owner == rank_world(self.group)[0])
+
+
+def _select_global(valid_cn, k: int, group):
+    """The first k valid pairs of the whole map's (C, N) grid in the
+    global pair order, from this rank's (C, N_local) block of it."""
+    C, N = valid_cn.shape
+    rank, world = rank_world(group)
+    Ng = N * world
+    idx, ok = _select_pairs(gather_cat(valid_cn, group, 1),
+                            _pair_perm(C, Ng, valid_cn.device), k)
+    cam = torch.div(idx, Ng, rounding_mode="floor")
+    pt = idx % Ng
+    if group is None:
+        return _Pairs(cam=cam, pt=pt, ok=ok, loc=pt, flat=idx)
+    owner = torch.div(pt, N, rounding_mode="floor")
+    loc = torch.where(owner == rank, pt - rank * N, torch.zeros_like(pt))
+    return _Pairs(cam=cam, pt=pt, ok=ok, loc=loc, flat=cam * N + loc,
+                  owner=owner, group=group)
+
+
 # ---------------------------------------------------------------------------
 # Search over selected pairs
 # ---------------------------------------------------------------------------
@@ -238,15 +300,17 @@ def _pair_jacobian(cams, cfb: SE3, pose: SE3, pos_w, cam_idx):
 
 def pose_solve(pose: SE3, ms: MapState, cams, cam_idx, pt_idx, found,
                found_pos, level, iterations: int, prior: float,
-               sigma_floor: float):
+               sigma_floor: float, pos_w=None):
     """Iterated Tukey-weighted 6-DOF WLS (ref CalcPoseUpdate,
     src/Tracker.cc:1386-1511) on the reference's schedule: full
     re-projection + Jacobians at iterations 0, 4 and the last, linear
     residual updates (e -= J delta) in between; the MAD sigma is
-    recomputed at each re-linearisation.
+    recomputed at each re-linearisation.  pos_w: the pairs' (K,3) point
+    positions, when not ``ms.points.pos_w[pt_idx]`` (a sharded map).
 
     Returns (pose, H (6,6), final weights (K,), final residuals (K,2))."""
-    pos_w = ms.points.pos_w[pt_idx]
+    if pos_w is None:
+        pos_w = ms.points.pos_w[pt_idx]
     cfb = ms.cam_from_base
     inv_scale = 1.0 / torch.exp2(level.to(torch.float32))
     eye6 = torch.eye(6, device=pos_w.device)
@@ -319,38 +383,37 @@ def _stage_motion(ts: TrackerState, sbi_rot, have_rot) -> SE3:
 
 
 def _stage_pvs(ms: MapState, cams: CameraModel, pose_pred: SE3, cam_active):
-    """Stage 2: potentially-visible set over the (camera x point) grid."""
+    """Stage 2: potentially-visible set over the (camera x point) grid (of
+    this rank's points, on a shard)."""
     pvs = compute_pvs(ms, cams, pose_pred)
     pvs["valid"] = pvs["valid"] & cam_active[:, None]
     return pvs
 
 
 def _stage_coarse(ms: MapState, cams: CameraModel, feats: FrameFeatures, pvs,
-                  pose_pred: SE3, tcfg: TrackerConfig):
+                  pose_pred: SE3, tcfg: TrackerConfig, group=None):
     """Stage 3: level>=2 pairs searched at the coarse range + coarse GN
     solve (TestForCoarse, src/Tracker.cc:726-772).
     Returns (pose_after_coarse, do_coarse)."""
-    C = feats.atlas.shape[0]
-    N = ms.points.capacity
-    perm = _pair_perm(C, N, feats.atlas.device)
+    dev = feats.atlas.device
     coarse_valid = pvs["valid"] & (pvs["level"] >= 2)
-    c_idx, c_ok = _select_pairs(coarse_valid, perm, tcfg.coarse_max)
-    c_cam = torch.div(c_idx, N, rounding_mode="floor")
-    c_pt = c_idx % N
-    c_uv = pvs["uv"].reshape(-1, 2)[c_idx]
-    c_warp = pvs["warp"].reshape(-1, 2, 2)[c_idx]
-    c_lvl = pvs["level"].reshape(-1)[c_idx]
+    c = _select_global(coarse_valid, tcfg.coarse_max, group)
+    c_uv = c.grid(pvs["uv"].reshape(-1, 2))
+    c_warp = c.grid(pvs["warp"].reshape(-1, 2, 2))
+    c_lvl = c.grid(pvs["level"].reshape(-1))
     # coarse pairs are all level >= 2: the level-pixel radius is range/4
     coarse_range_lvl = -(-tcfg.coarse_range // 4)
     cf_found, cf_pos, _ = search_pairs(
-        ms, feats, c_cam, c_pt, c_uv, c_warp, c_lvl, c_ok, coarse_range_lvl,
-        torch.full((), float(tcfg.coarse_range), device=perm.device),
+        ms, feats, c.cam, c.loc, c_uv, c_warp, c_lvl, c.mine(c.ok), coarse_range_lvl,
+        torch.full((), float(tcfg.coarse_range), device=dev),
         tcfg.coarse_sub_pix_its, max_ssd=64 * tcfg.max_ssd_per_pixel,
     )
+    cf_found, cf_pos = c.owned(cf_found), c.owned(cf_pos)
     do_coarse = torch.sum(cf_found) >= tcfg.coarse_min
     pose_c, _, _, _ = pose_solve(
-        pose_pred, ms, cams, c_cam, c_pt, cf_found, cf_pos, c_lvl,
+        pose_pred, ms, cams, c.cam, c.pt, cf_found, cf_pos, c_lvl,
         tcfg.coarse_iterations, tcfg.tracking_prior, tcfg.mest_sigma_min,
+        pos_w=c.rows(ms.points.pos_w),
     )
     pose_after_coarse = SE3(R=torch.where(do_coarse, pose_c.R, pose_pred.R),
                             t=torch.where(do_coarse, pose_c.t, pose_pred.t))
@@ -358,32 +421,29 @@ def _stage_coarse(ms: MapState, cams: CameraModel, feats: FrameFeatures, pvs,
 
 
 def _stage_fine(ms: MapState, cams: CameraModel, feats: FrameFeatures, pvs,
-                pose_after_coarse: SE3, do_coarse, tcfg: TrackerConfig):
+                pose_after_coarse: SE3, do_coarse, tcfg: TrackerConfig, group=None):
     """Stage 4: up to max_patches_per_frame pairs searched at 10/5 px +
     subpixel (src/Tracker.cc:841-905).  The PVS comes from the predicted
     pose; only the selected pairs' positions are re-projected under the
     coarse-refined pose."""
-    C = feats.atlas.shape[0]
-    N = ms.points.capacity
-    perm = _pair_perm(C, N, feats.atlas.device)
-    f_idx, f_ok = _select_pairs(pvs["valid"], perm, tcfg.max_patches_per_frame)
-    f_cam = torch.div(f_idx, N, rounding_mode="floor")
-    f_pt = f_idx % N
-    f_warp = pvs["warp"].reshape(-1, 2, 2)[f_idx]
-    f_lvl = pvs["level"].reshape(-1)[f_idx]
+    dev = feats.atlas.device
+    f = _select_global(pvs["valid"], tcfg.max_patches_per_frame, group)
+    f_warp = f.grid(pvs["warp"].reshape(-1, 2, 2))
+    f_lvl = f.grid(pvs["level"].reshape(-1))
+    f_pos_w = f.rows(ms.points.pos_w)
     f_uv, f_proj_ok = _pair_project(cams, ms.cam_from_base, pose_after_coarse,
-                                    ms.points.pos_w[f_pt], f_cam)
-    f_ok = f_ok & f_proj_ok
+                                    f_pos_w, f.cam)
+    f_ok = f.ok & f_proj_ok
     fine_range = torch.where(
-        do_coarse, torch.full((), float(tcfg.fine_range), device=perm.device),
-        torch.full((), float(tcfg.fine_range_first), device=perm.device))
+        do_coarse, torch.full((), float(tcfg.fine_range), device=dev),
+        torch.full((), float(tcfg.fine_range_first), device=dev))
     ff_found, ff_pos, ff_sub = search_pairs(
-        ms, feats, f_cam, f_pt, f_uv, f_warp, f_lvl, f_ok,
+        ms, feats, f.cam, f.loc, f_uv, f_warp, f_lvl, f.mine(f_ok),
         tcfg.fine_range_first, fine_range, tcfg.fine_sub_pix_its,
         max_ssd=64 * tcfg.max_ssd_per_pixel,
     )
-    return {"cam": f_cam, "pt": f_pt, "lvl": f_lvl, "ok": f_ok,
-            "found": ff_found, "pos": ff_pos, "sub": ff_sub}
+    return {"cam": f.cam, "pt": f.pt, "lvl": f_lvl, "ok": f_ok, "pos_w": f_pos_w,
+            "found": f.owned(ff_found), "pos": f.owned(ff_pos), "sub": f.owned(ff_sub)}
 
 
 def _stage_pose(ms: MapState, cams: CameraModel, pose_after_coarse: SE3,
@@ -392,7 +452,7 @@ def _stage_pose(ms: MapState, cams: CameraModel, pose_after_coarse: SE3,
     pose_new, H, w_final, _ = pose_solve(
         pose_after_coarse, ms, cams, fine["cam"], fine["pt"], fine["found"],
         fine["pos"], fine["lvl"], tcfg.fine_iterations, tcfg.tracking_prior,
-        tcfg.mest_sigma_min,
+        tcfg.mest_sigma_min, pos_w=fine["pos_w"],
     )
     # numpy's default pinv cutoff, as the reference's jnp.linalg.pinv
     cov = torch.linalg.pinv(H, rtol=10 * 6 * torch.finfo(H.dtype).eps)
@@ -401,11 +461,16 @@ def _stage_pose(ms: MapState, cams: CameraModel, pose_after_coarse: SE3,
 
 def track_frame(ts: TrackerState, ms: MapState, cams: CameraModel,
                 cams_sbi: CameraModel, feats: FrameFeatures,
-                tcfg: TrackerConfig = DEFAULT_TRACKER, cam_active=None):
+                tcfg: TrackerConfig = DEFAULT_TRACKER, cam_active=None,
+                group=None):
     """One tracking step.  Returns (new TrackerState, TrackResult).
 
     cam_active: optional (C,) bool; absent cameras contribute no
-    measurements and no rotation vote and keep their previous SBI."""
+    measurements and no rotation vote and keep their previous SBI.
+    group: the ranks over which ``ms``'s points are sharded
+    (parallel/mesh.py ``shard_map_points``); ``ms`` is then this rank's
+    shard, and the result, with point indices into the whole map, is the
+    same on every rank."""
     C = feats.atlas.shape[0]
     if cam_active is None:
         cam_active = torch.ones(C, dtype=torch.bool, device=feats.atlas.device)
@@ -414,8 +479,9 @@ def track_frame(ts: TrackerState, ms: MapState, cams: CameraModel,
     pose_pred = _stage_motion(ts, sbi_rot, have_rot)
     pvs = _stage_pvs(ms, cams, pose_pred, cam_active)
     pose_after_coarse, do_coarse = _stage_coarse(ms, cams, feats, pvs,
-                                                 pose_pred, tcfg)
-    fine = _stage_fine(ms, cams, feats, pvs, pose_after_coarse, do_coarse, tcfg)
+                                                 pose_pred, tcfg, group)
+    fine = _stage_fine(ms, cams, feats, pvs, pose_after_coarse, do_coarse, tcfg,
+                       group)
     pose_new, cov, outlier = _stage_pose(ms, cams, pose_after_coarse, fine, tcfg)
     return _stage_finalize(ts, ms, feats, pose_new, cov, fine, outlier,
                            sbi_rot, tcfg, cam_active)
@@ -433,7 +499,7 @@ def _stage_finalize(ts: TrackerState, ms: MapState, feats: FrameFeatures,
 
     # scene depth per camera from the found fine points
     cfb = ms.cam_from_base
-    p_base = pose_new.apply(ms.points.pos_w[f_pt])
+    p_base = pose_new.apply(fine["pos_w"])
     p_cam = torch.einsum("kij,kj->ki", cfb.R[f_cam], p_base) + cfb.t[f_cam]
     depth = torch.linalg.vector_norm(p_cam, dim=-1)
     cam_onehot = f_cam[None, :] == torch.arange(C, device=dev)[:, None]  # (C,K)
@@ -517,13 +583,21 @@ def _stage_finalize(ts: TrackerState, ms: MapState, feats: FrameFeatures,
 def apply_tracker_point_stats(ms: MapState, result: TrackResult,
                               min_outliers: int = 20,
                               outlier_multiplier: float = 1.0,
-                              enable=True) -> MapState:
+                              enable=True, group=None) -> MapState:
     """Fold the tracker's in/outlier tallies into the map and flag bad
     points (ref MapMakerClientBase::MarkOutliers,
     src/MapMakerClientBase.cc:73-94).  enable=False (a bool tensor) makes
-    it a no-op.  Updates the point arrays in place."""
+    it a no-op.  Updates the point arrays in place.  group: ``ms`` is this
+    rank's shard of a map sharded by points (``track_frame``'s group); a
+    rank writes the tallies of its own points."""
     pts = ms.points
     sel = result.sel_point.long()
+    if group is not None:
+        N = pts.capacity
+        lo = rank_world(group)[0] * N
+        mine = (sel >= lo) & (sel < lo + N)
+        sel = torch.where(mine, sel - lo, torch.zeros_like(sel))
+        enable = mine & enable
     inl = result.sel_found & ~result.sel_outlier & enable
     pts.in_count.index_add_(0, sel, inl.to(torch.int32))
     pts.out_count.index_add_(0, sel, (result.sel_outlier & enable).to(torch.int32))

@@ -107,6 +107,40 @@ def test_frame_features_match():
     assert got.atlas.shape == (C, H, ref.atlas.shape[-1])
 
 
+def test_frontend_row_range_on_a_slab(rng):
+    """The histograms over a row range (K1's form for a row shard of a
+    sharded image, parallel/mesh.py): on a slab of rows with a 4-row halo
+    each side, the slab's scores and nonmax match the JAX kernel's in
+    interpret mode on the slab, and its interior rows match the JAX
+    kernel's on the whole image; the histograms count exactly those
+    interior rows, as a cumulative count of the JAX scores there gives."""
+    img = _image(rng, (2, 64, 96))
+    s0, s1, a, b = 12, 44, 4, 28          # slab rows, its interior rows
+    slab = img[:, s0:s1]
+    score, nm, freq, freq_nm = fast_frontend_reference(t(slab), rows=(a, b))
+    j_slab = j_kernel(jnp.asarray(slab), interpret=True)
+    j_whole = j_kernel(jnp.asarray(img), interpret=True)
+    _equal(score, j_slab[0])
+    _equal(nm, j_slab[1])
+    _equal(score[:, a:b], np.asarray(j_whole[0])[:, s0 + a:s0 + b])
+    _equal(nm[:, a:b], np.asarray(j_whole[1])[:, s0 + a:s0 + b])
+
+    def cumfreq(x):
+        flat = np.asarray(x).reshape(x.shape[0], -1)
+        return np.stack([(flat > np.float32(th) - np.float32(1e-6)).sum(-1)
+                         for th in range(NBINS)], -1).astype(np.float32)
+
+    _equal(freq, cumfreq(np.asarray(j_slab[0])[:, a:b]))
+    _equal(freq_nm, cumfreq(np.asarray(j_slab[1])[:, a:b]))
+    # the whole slab by default, and through the one-launch entry point
+    _equal(fast_frontend_reference(t(slab))[2], j_slab[2])
+    got = fast_frontend_levels([t(slab)], rows=[(a, b)])[0]
+    for g, r in zip(got, (score, nm, freq, freq_nm)):
+        _equal(g, r)
+    with pytest.raises(ValueError, match="histogram rows"):
+        fast_frontend_levels([t(slab)], rows=[(a, s1 - s0 + 1)])
+
+
 def test_frontend_levels_match_jax_on_pyramid():
     """The one-launch entry point on the CPU: every level of the rendered
     frame's pyramid equals the JAX reference, and nothing is launched."""
