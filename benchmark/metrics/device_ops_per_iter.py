@@ -1,0 +1,8 @@
+"""Device operations (kernels, copies, sets) in the profiled slice per LM iteration."""
+
+
+def read(rec):
+    s = rec.slice
+    if s is None or s["unit"] != "iters" or not s["n_ops"] or not s["units"]:
+        return None
+    return s["n_ops"] / s["units"]
