@@ -80,8 +80,10 @@ def run_tracking_loop(system, frames, fps, out_map=None, print_every=1,
     (the throughput mode: FrameInfos drain late and carry their frame_id);
     at the end of the stream the pipeline is flushed and a partial batch's
     tail goes through process_frame.  Returns the FrameInfos in frame
-    order, each frame once."""
+    order, each frame once.  The tracer (system/timing.py) is on while the
+    loop runs: ``track=`` is the host time of the frame's stage spans."""
     from mcptam_tpu_torch.io.video_source import ReplaySource
+    from mcptam_tpu_torch.system import timing
     from mcptam_tpu_torch.system.mapio import save_map
 
     def report(info):
@@ -101,6 +103,7 @@ def run_tracking_loop(system, frames, fps, out_map=None, print_every=1,
     src = ReplaySource(frames, fps=fps, timestamps=timestamps)
     src.start()
     infos, buf = [], []
+    traced = timing.enable(True)
     try:
         for i in range(frames.shape[1]):
             out = src.queue.get(timeout_ms=10000)
@@ -121,6 +124,7 @@ def run_tracking_loop(system, frames, fps, out_map=None, print_every=1,
             take([system.process_frame(img)])
         take(system.flush_pipeline())
     finally:
+        timing.enable(*traced)
         src.join()
         src.queue.close()
     # drop the provisional duplicates of pipeline priming; frame order

@@ -24,11 +24,18 @@ its own points.  On the scatter path each rank holds a block of the
 measurements (``shard_bundle_problem``): the normal equations, the
 median's counts, the costs and counts are summed, and the solve is the
 same on every rank.  With no group nothing is reduced.
+
+Each LM iteration runs inside spans (system/timing.py): ``ba.lm_step``
+around it, ``ba.robust`` (median, weights, cost), ``ba.schur`` (the solve
+by Schur complement; ``ba.resid_jac`` and ``ba.solve``, the ``spd_solve``
+call, inside it on the SoA path), ``ba.trial`` (the updated estimate's
+residuals and cost) and ``ba.update`` (accept or reject).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from dataclasses import dataclass
 
 import torch
@@ -43,6 +50,10 @@ from mcptam_tpu_torch.core.linalg import inv3
 from mcptam_tpu_torch.core.se3 import SE3
 from mcptam_tpu_torch.core.spd import spd_solve
 from mcptam_tpu_torch.parallel.collectives import all_reduce
+from mcptam_tpu_torch.system.timing import span
+
+# the host-side index of an LM iteration, the id of its spans
+_STEP_IDS = itertools.count()
 
 @dataclass
 class BundleProblem:
@@ -289,7 +300,8 @@ def _solve_delta(prob: BundleProblem, e, Ja, Jb, Jl, w, lam, group=None):
     movable = torch.cat([prob.movable_a, prob.movable_b])
     mvec = movable.repeat_interleave(6).to(torch.float32)
     Sf = S * mvec[:, None] * mvec[None, :] + torch.diag(1.0 - mvec)
-    delta_f = torch.linalg.solve(Sf, b_s * mvec) * mvec
+    with span("ba.solve"):
+        delta_f = torch.linalg.solve(Sf, b_s * mvec) * mvec
     delta_p = delta_f.reshape(P, 6) * movable[:, None]
     rhs = b_l - torch.einsum("lxw,x->lw", Wl, delta_f)
     delta_l = torch.einsum("lxy,ly->lx", Vinv, rhs)
@@ -464,8 +476,9 @@ def _solve_delta_soa(prob: BundleProblem, pr: dict, pose_a: SE3, pose_b: SE3,
     Pb = prob.movable_b.shape[0]
     P = Pa + Pb
 
-    e, Ja, Jb, Jl, okN = _resid_jac_soa(prob, pose_a, pose_b, points, cams, pr,
-                                        with_b=not fixed_b)
+    with span("ba.resid_jac"):
+        e, Ja, Jb, Jl, okN = _resid_jac_soa(prob, pose_a, pose_b, points, cams, pr,
+                                            with_b=not fixed_b)
     q = torch.sqrt(torch.clamp(_pad_tail(w)[pr["idx"]], min=0.0)) * okN
     A = [[q * Ja[i][g] for g in range(6)] for i in range(2)]
     B = None if fixed_b else [[q * Jb[i][g] for g in range(6)] for i in range(2)]
@@ -541,7 +554,8 @@ def _solve_delta_soa(prob: BundleProblem, pr: dict, pose_a: SE3, pose_b: SE3,
     S = Hf + torch.diag(lam * torch.diagonal(Hf) + 1e-8) - S_corr
     mvec = movable.repeat_interleave(6).to(torch.float32)
     Sf = S * mvec[:, None] * mvec[None, :] + torch.diag(1.0 - mvec)
-    delta_f = spd_solve(Sf, b_s * mvec) * mvec
+    with span("ba.solve"):
+        delta_f = spd_solve(Sf, b_s * mvec) * mvec
     delta_p = delta_f.reshape(PS, 6) * movable[:, None]
 
     r = [b_l[m] - W[m] @ delta_f for m in range(3)]
@@ -604,47 +618,57 @@ def _lm_step_soa_carried(prob: BundleProblem, st: LMState, chi2, ok,
                          fixed_b: bool = False, group=None):
     """One LM iteration with the current-estimate chi2 carried in and out,
     so each iteration pays one full residual pass (the trial)."""
-    med = mest.masked_median_hist(chi2, ok, group=group)
-    sigma_sq = torch.clamp(med, min=bcfg.min_sigma_px ** 2)
-    w = mest.weight(mest.HUBER, chi2, sigma_sq) * ok
-    cost0 = all_reduce(torch.sum(mest.objective_score(mest.HUBER, chi2, sigma_sq) * ok),
-                       group)
-
-    da, db, dl = _solve_delta_soa(prob, pr, st.pose_a, st.pose_b, st.points,
-                                  cams, w, st.lam, fixed_b=fixed_b, group=group)
-    new_pose_a = SE3.exp(da) @ st.pose_a
-    new_pose_b = st.pose_b if fixed_b else SE3.exp(db) @ st.pose_b
-    new_points = st.points + dl
-
-    chi2_1, ok1 = _resid_chi2_soa(prob, new_pose_a, new_pose_b, new_points, cams)
-    cost1 = all_reduce(torch.sum(mest.objective_score(mest.HUBER, chi2_1, sigma_sq) * ok1),
-                       group)
-    st_new, act = _lm_update(prob, st, bcfg, (da, db, dl),
-                             (new_pose_a, new_pose_b, new_points), cost0, cost1,
-                             sigma_sq, ok, ok1, group=group, points_sharded=True)
-    return st_new, torch.where(act, chi2_1, chi2), torch.where(act, ok1, ok)
+    with span("ba.lm_step", next(_STEP_IDS)):
+        with span("ba.robust"):
+            med = mest.masked_median_hist(chi2, ok, group=group)
+            sigma_sq = torch.clamp(med, min=bcfg.min_sigma_px ** 2)
+            w = mest.weight(mest.HUBER, chi2, sigma_sq) * ok
+            cost0 = all_reduce(
+                torch.sum(mest.objective_score(mest.HUBER, chi2, sigma_sq) * ok), group)
+        with span("ba.schur"):
+            da, db, dl = _solve_delta_soa(prob, pr, st.pose_a, st.pose_b, st.points,
+                                          cams, w, st.lam, fixed_b=fixed_b, group=group)
+        with span("ba.trial"):
+            new_pose_a = SE3.exp(da) @ st.pose_a
+            new_pose_b = st.pose_b if fixed_b else SE3.exp(db) @ st.pose_b
+            new_points = st.points + dl
+            chi2_1, ok1 = _resid_chi2_soa(prob, new_pose_a, new_pose_b, new_points, cams)
+            cost1 = all_reduce(
+                torch.sum(mest.objective_score(mest.HUBER, chi2_1, sigma_sq) * ok1), group)
+        with span("ba.update"):
+            st_new, act = _lm_update(prob, st, bcfg, (da, db, dl),
+                                     (new_pose_a, new_pose_b, new_points), cost0, cost1,
+                                     sigma_sq, ok, ok1, group=group, points_sharded=True)
+            return st_new, torch.where(act, chi2_1, chi2), torch.where(act, ok1, ok)
 
 
 def _lm_step_scatter(prob: BundleProblem, st: LMState, cams: CameraModel,
                      bcfg: BundleConfig, group=None) -> LMState:
     """One LM iteration of a problem without an observation table: the
     AoS residuals and Jacobians, ``_solve_delta``, and the trial scored
-    under the same sigma."""
-    e, Ja, Jb, Jl, ok = _residuals_and_jacobians(prob, st.pose_a, st.pose_b,
-                                                 st.points, cams)
-    w, cost0, sigma_sq = _robust(e, ok, bcfg, group)
-    da, db, dl = _solve_delta(prob, e, Ja, Jb, Jl, w, st.lam, group)
-    new_pose_a = SE3.exp(da) @ st.pose_a
-    new_pose_b = SE3.exp(db) @ st.pose_b
-    new_points = st.points + dl
-
-    e1, _, _, _, ok1 = _residuals_and_jacobians(prob, new_pose_a, new_pose_b,
-                                                new_points, cams)
-    # the trial scored under the same sigma
-    cost1 = all_reduce(torch.sum(mest.objective_score(mest.HUBER, torch.sum(e1 * e1, -1),
-                                                      sigma_sq) * ok1), group)
-    return _lm_update(prob, st, bcfg, (da, db, dl), (new_pose_a, new_pose_b, new_points),
-                      cost0, cost1, sigma_sq, ok, ok1, group=group)[0]
+    under the same sigma.  Its ``ba.resid_jac`` span comes before
+    ``ba.robust``, beside ``ba.schur``."""
+    with span("ba.lm_step", next(_STEP_IDS)):
+        with span("ba.resid_jac"):
+            e, Ja, Jb, Jl, ok = _residuals_and_jacobians(prob, st.pose_a, st.pose_b,
+                                                         st.points, cams)
+        with span("ba.robust"):
+            w, cost0, sigma_sq = _robust(e, ok, bcfg, group)
+        with span("ba.schur"):
+            da, db, dl = _solve_delta(prob, e, Ja, Jb, Jl, w, st.lam, group)
+        with span("ba.trial"):
+            new_pose_a = SE3.exp(da) @ st.pose_a
+            new_pose_b = SE3.exp(db) @ st.pose_b
+            new_points = st.points + dl
+            e1, _, _, _, ok1 = _residuals_and_jacobians(prob, new_pose_a, new_pose_b,
+                                                        new_points, cams)
+            # the trial scored under the same sigma
+            cost1 = all_reduce(torch.sum(mest.objective_score(
+                mest.HUBER, torch.sum(e1 * e1, -1), sigma_sq) * ok1), group)
+        with span("ba.update"):
+            return _lm_update(prob, st, bcfg, (da, db, dl),
+                              (new_pose_a, new_pose_b, new_points),
+                              cost0, cost1, sigma_sq, ok, ok1, group=group)[0]
 
 
 def lm_step(prob: BundleProblem, st: LMState, cams: CameraModel,

@@ -41,7 +41,8 @@ from mcptam_tpu_torch.map.refind import refind_in_keyframes
 from mcptam_tpu_torch.map.state import (
     MapState, clone_tree, count_mkfs, count_points, move_bad_points_to_trash,
 )
-from mcptam_tpu_torch.system.timing import MapMakerTiming
+from mcptam_tpu_torch.system import timing
+from mcptam_tpu_torch.system.timing import MapMakerTiming, span
 
 MM_INITIALIZING = 0
 MM_RUNNING = 1
@@ -199,10 +200,17 @@ class MapMaker:
         return ms
 
     def _tick(self, ms: MapState) -> MapState:
+        """One scheduler tick, in a ``mapmaker.tick`` span named by its
+        kind: ``:integrate``, ``:ba_chunk`` or ``:idle``."""
+        with span("mapmaker.tick") as sp:
+            return self._tick_in(ms, sp)
+
+    def _tick_in(self, ms: MapState, sp) -> MapState:
         t0 = time.perf_counter()
 
         # 1. a queued MKF first (preempts BA)
         if self.queue:
+            sp.tag("integrate")
             if (self._ba_kind != "none" and self._ba_state is not None
                     and int(self._ba_state.accepted) > 0):
                 # apply what the aborted BA achieved
@@ -235,7 +243,7 @@ class MapMaker:
                 # local BA only once the map is big enough (snRecentMinSize)
                 if int(count_mkfs(ms)) < self.bcfg.recent_min_size:
                     self._local_done = True
-                    return self._tick(ms)
+                    return self._tick_in(ms, sp)
                 self._ba_kind = "local"
                 self._ba_prob = self._local_problem(ms)
             elif not self._global_done:
@@ -244,6 +252,7 @@ class MapMaker:
             else:
                 # idle: trash GC, then the refind sweeps — the general one
                 # (ReFindNewlyMade) and, 1 loop in 20, the failure queue
+                sp.tag("idle")
                 ms = move_bad_points_to_trash(ms)
                 self._idle_ticks += 1
                 n_refound = 0
@@ -261,14 +270,14 @@ class MapMaker:
 
         # one chunk; read the convergence flag of the chunk dispatched two
         # ticks ago, whose copy has landed
+        sp.tag("ba_chunk")
         self._ba_state = self._lm_run(self._ba_prob, self._ba_state)
         self._conv_pending.append(_to_host(self._ba_state.converged))
         self._ba_steps += self.ba_chunk
         converged = False
         if len(self._conv_pending) > 2:
             host, ev = self._conv_pending.pop(0)
-            if ev is not None:
-                ev.synchronize()
+            timing.wait(ev)
             converged = bool(host)
         exhausted = self._ba_steps >= self.bcfg.max_iterations
 

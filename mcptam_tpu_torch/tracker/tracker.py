@@ -13,8 +13,10 @@ Per frame (ref TrackFrame, src/Tracker.cc:409-518):
   5. Tukey-reweighted 6-DOF pose solve with prior 100, covariance H^-1;
   6. per-camera quality, lost counter, motion-model update.
 
-Every shape is static and nothing syncs with the host: data-dependent
-choices are ``torch.where`` selections, as in the reference.
+Every shape is static and data-dependent choices are ``torch.where``
+selections, as in the reference.  Each stage runs inside a span of its
+own (``tracker.sbi``, ``.motion``, ``.pvs``, ``.coarse``, ``.fine``,
+``.pose``, ``.finalize``; system/timing.py).
 
 ``track_frame`` takes an optional process group (parallel/mesh.py).  Each
 rank then holds a block of the map's points (``shard_map_points``): it
@@ -50,6 +52,7 @@ from mcptam_tpu_torch.ops.patch import pack_corner_atlas, warp_and_search_level
 from mcptam_tpu_torch.ops.sbi import se3_from_se2
 from mcptam_tpu_torch.ops.sbi_kernel import esm_align_all
 from mcptam_tpu_torch.parallel.collectives import from_owner, gather_cat, rank_world
+from mcptam_tpu_torch.system.timing import span
 
 QUALITY_GOOD = 0
 QUALITY_DODGY = 1
@@ -474,17 +477,24 @@ def track_frame(ts: TrackerState, ms: MapState, cams: CameraModel,
     C = feats.atlas.shape[0]
     if cam_active is None:
         cam_active = torch.ones(C, dtype=torch.bool, device=feats.atlas.device)
-    sbi_rot, have_rot = _stage_sbi(ts, feats, cams_sbi, ms.cam_from_base,
-                                   tcfg, cam_active)
-    pose_pred = _stage_motion(ts, sbi_rot, have_rot)
-    pvs = _stage_pvs(ms, cams, pose_pred, cam_active)
-    pose_after_coarse, do_coarse = _stage_coarse(ms, cams, feats, pvs,
-                                                 pose_pred, tcfg, group)
-    fine = _stage_fine(ms, cams, feats, pvs, pose_after_coarse, do_coarse, tcfg,
-                       group)
-    pose_new, cov, outlier = _stage_pose(ms, cams, pose_after_coarse, fine, tcfg)
-    return _stage_finalize(ts, ms, feats, pose_new, cov, fine, outlier,
-                           sbi_rot, tcfg, cam_active)
+    with span("tracker.sbi"):
+        sbi_rot, have_rot = _stage_sbi(ts, feats, cams_sbi, ms.cam_from_base,
+                                       tcfg, cam_active)
+    with span("tracker.motion"):
+        pose_pred = _stage_motion(ts, sbi_rot, have_rot)
+    with span("tracker.pvs"):
+        pvs = _stage_pvs(ms, cams, pose_pred, cam_active)
+    with span("tracker.coarse"):
+        pose_after_coarse, do_coarse = _stage_coarse(ms, cams, feats, pvs,
+                                                     pose_pred, tcfg, group)
+    with span("tracker.fine"):
+        fine = _stage_fine(ms, cams, feats, pvs, pose_after_coarse, do_coarse, tcfg,
+                           group)
+    with span("tracker.pose"):
+        pose_new, cov, outlier = _stage_pose(ms, cams, pose_after_coarse, fine, tcfg)
+    with span("tracker.finalize"):
+        return _stage_finalize(ts, ms, feats, pose_new, cov, fine, outlier,
+                               sbi_rot, tcfg, cam_active)
 
 
 def _stage_finalize(ts: TrackerState, ms: MapState, feats: FrameFeatures,

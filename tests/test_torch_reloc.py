@@ -24,7 +24,6 @@ from mcptam_tpu_torch.core.se3 import SE3
 from mcptam_tpu_torch.map.keyframe import make_frame_features as p_features
 from mcptam_tpu_torch.ops.sbi import sbi_zmssd
 from mcptam_tpu_torch.system.system import System, _Frame
-from mcptam_tpu_torch.system.timing import Stopwatch, TrackerTiming
 from mcptam_tpu_torch.tracker.reloc import attempt_recovery
 
 
@@ -107,8 +106,7 @@ def _push(sys_, fid, lost):
 
 
 def _drain_one(sys_):
-    return sys_._drain_frame(sys_._inflight.popleft(), TrackerTiming(), Stopwatch(),
-                             do_actions=True)
+    return sys_._drain_frame(sys_._inflight.popleft(), do_actions=True)
 
 
 def test_pipeline_reloc_skipped_when_newer_frame_recovered():
