@@ -6,9 +6,10 @@ judge samples), and with ``--control`` for the precision control too:
 the plain reference put in the program's place and computed with TF32
 (the configuration states float32 with TF32 off), judged by the same
 judge against the reference in float32.  ``--faults`` reads the program
-with each named fault of ``faults.py`` planted under its timed path: the
-readings that set the upper end of a number that the control does not
-separate (the BA cell's update and final state).
+with each named fault of the cell's driver (``FAULTS`` in
+``drivers/<driver>.py``, planted by ``faults.py``) under its timed path:
+the readings that set the upper end of a number that the control does not
+separate.
 
     python3 benchmark/control.py --workload <cell> --seeds 11 12 13 [--program] [--control]
         [--faults state_unchanged half_batch answer_altered]
@@ -48,9 +49,11 @@ class NoLimits(dict):
 NO_LIMITS = NoLimits()
 
 
-def read_seeds(workload: str, seeds, sides, dev, calls: int = 0, overrides=None):
+def read_seeds(workload: str, seeds, sides, dev, calls: int = 0, overrides=None, limits=None):
     """Yield one dict of readings per seed and side ("program", "control",
-    or the name of a fault)."""
+    or the name of a fault).  With ``limits`` it also holds under
+    ``failed`` the names of the numbers that fail them, as the judge
+    decides (an upper limit or a floor)."""
     import torch
 
     from run import merged
@@ -75,7 +78,10 @@ def read_seeds(workload: str, seeds, sides, dev, calls: int = 0, overrides=None)
                 driver.release(sess)
             finally:
                 restore()
-            got = {k: v for k, (v, _, _) in driver.judge(sess, NO_LIMITS).items()}
+            checks = driver.judge(sess, NO_LIMITS if limits is None else limits)
+            got = {k: v for k, (v, _, _) in checks.items()}
+            if limits is not None:
+                got["failed"] = sorted(k for k, (_, _, ok) in checks.items() if not ok)
             torch.cuda.empty_cache()
             yield {"workload": workload, "side": side, "seed": seed,
                    "seconds": round(time.perf_counter() - t0, 1), **got}

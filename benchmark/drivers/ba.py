@@ -32,6 +32,7 @@ import time
 
 import torch
 
+from faults import patch
 from harness.convert import to_program
 
 UNIT = "iters"
@@ -141,9 +142,12 @@ def _landed(item) -> bool:
 
 
 def window(sess: Session, seconds: float, rec, hooks, trace: bool, max_chunks: int = 0):
-    """The measured window.  With ``trace`` the spans are on for ``seconds``,
-    and then ``profile_chunks`` more chunks run under the profiler; the
-    window ends with them."""
+    """The measured window.  With ``trace`` the spans are on for ``seconds``.
+    Then, in every run of the benchmark, ``profile_chunks`` more chunks run
+    under the profiler (the device time per iteration, the cell's
+    end-to-end metric, reads them; with ``trace`` the per-layer metrics
+    too); the window ends with them.  A reading for the limits
+    (``max_chunks``, control.py) reads no metric and profiles nothing."""
     from harness.trace import profile_slice, summarize
 
     mix, cap = sess.mix, sess.bcfg.max_iterations
@@ -190,8 +194,8 @@ def window(sess: Session, seconds: float, rec, hooks, trace: bool, max_chunks: i
     while time.perf_counter() - t0 < seconds and not (max_chunks and state["chunks"] >= max_chunks):
         iters += chunk()
     hooks.spans_on = False
-    if trace:
-        hooks.launches_on = True
+    if trace or not max_chunks:
+        hooks.launches_on = trace
         n0 = state["chunks"]
         got, events, wall, read_s = profile_slice(
             lambda: sum(chunk() for _ in range(mix["profile_chunks"])), sess.sync)
@@ -344,3 +348,50 @@ def control_setup(cfg: dict, mix: dict, seed: int, dev, sync) -> Session:
     sess.create = lambda prob: create_lm_state(prob, sess.bcfg)
     sess.bundle_module = "plainref.ba.bundle"
     return sess
+
+
+# -- faults planted under the timed path (faults.py) --------------------------
+
+def state_unchanged():
+    """The LM step solves (``spd_solve`` is called), then keeps its input
+    state: every trial rejected."""
+    from mcptam_tpu_torch.ba import bundle
+
+    orig = bundle._lm_update
+
+    def rejected(prob, st, bcfg, deltas, trial, cost0, cost1, *a, **k):
+        return orig(prob, st, bcfg, deltas, trial, cost0, torch.full_like(cost1, float("inf")),
+                    *a, **k)
+
+    return patch(bundle, "_lm_update", rejected)
+
+
+def half_batch():
+    """Half the measurements left out of every chunk."""
+    from mcptam_tpu_torch.ba import bundle
+
+    orig = bundle.lm_run
+
+    def lm_run(prob, st, *a, **k):
+        keep = torch.arange(prob.m_valid.shape[0], device=prob.m_valid.device) % 2 == 0
+        return orig(prob.replace(m_valid=prob.m_valid & keep), st, *a, **k)
+
+    return patch(bundle, "lm_run", lm_run)
+
+
+def answer_altered():
+    """The step's first coordinate moved by a hundredth of its largest
+    where K4's solve makes it."""
+    from mcptam_tpu_torch.ba import bundle
+
+    orig = bundle.spd_solve
+
+    def solve(A, b):
+        x = orig(A, b)
+        return x + 1e-2 * x.abs().max() * (torch.arange(x.shape[0], device=x.device) == 0)
+
+    return patch(bundle, "spd_solve", solve)
+
+
+FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
+          "answer_altered": answer_altered}

@@ -30,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from faults import patch
 from harness.convert import clone_tree, to_host, to_program, to_reference, tree_gaps
 
 UNIT = "frames"
@@ -384,3 +385,65 @@ def control_setup(cfg: dict, mix: dict, seed: int, dev, sync) -> Session:
     for _ in range(mix["warmup_batches"]):
         _call(sess, None)
     return sess
+
+
+# -- faults planted under the timed path (faults.py) --------------------------
+
+def state_unchanged():
+    """The tracking step returns its input state and pose."""
+    from mcptam_tpu_torch.system import system
+
+    orig = system.track_frame
+
+    def tracked(ts, ms, *a, **k):
+        _, res = orig(ts, ms, *a, **k)
+        return ts, dataclasses.replace(res, pose=ts.pose)
+
+    return patch(system, "track_frame", tracked)
+
+
+def answer_altered():
+    """The pose moved a millimetre where the tracking step makes it."""
+    from mcptam_tpu_torch.system import system
+
+    orig = system.track_frame
+
+    def tracked(ts, ms, *a, **k):
+        ts2, res = orig(ts, ms, *a, **k)
+        pose = dataclasses.replace(res.pose, t=res.pose.t + 1e-3)
+        return ts2, dataclasses.replace(res, pose=pose)
+
+    return patch(system, "track_frame", tracked)
+
+
+def half_batch():
+    """Every other frame of a batch tracked, its result standing for the
+    one left out."""
+    from mcptam_tpu_torch.system import system
+
+    orig = system.System._batch_step
+
+    def half(self, ts, ms, images_b, cam_active, queue_poses=None):
+        ts, ms, rows, results = orig(self, ts, ms, images_b[::2], cam_active, queue_poses)
+        return (ts, ms, rows.repeat_interleave(2, 0)[: images_b.shape[0]],
+                [r for r in results for _ in range(2)][: images_b.shape[0]])
+
+    return patch(system.System, "_batch_step", half)
+
+
+def map_moved():
+    """One point of the start map moved a millimetre as it is built."""
+    from mcptam_tpu_torch.io import synthetic
+
+    orig = synthetic.build_groundtruth_map
+
+    def moved(*a, **k):
+        ms, feats = orig(*a, **k)
+        ms.points.pos_w[0] += 1e-3
+        return ms, feats
+
+    return patch(synthetic, "build_groundtruth_map", moved)
+
+
+FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
+          "answer_altered": answer_altered, "map_moved": map_moved}

@@ -17,6 +17,19 @@ def program_report():
     return report() if report is not None else None
 
 
+def clear_program_trace():
+    """Empty the program's tracer, so that what it reports after a run is
+    that run's profiled slice, also where one process runs several cells
+    (the tests)."""
+    try:
+        from mcptam_tpu_torch.system import timing
+    except ImportError:
+        return
+    clear = getattr(timing, "clear", None)
+    if clear is not None:
+        clear()
+
+
 def per_unit(rec, unit: str, span: str, field: str):
     """``field`` (``total_ms``, ``self_ms`` or ``syncs``) of the spans named
     ``span``, summed over the slice, per frame or LM iteration (``unit``)."""

@@ -19,17 +19,20 @@ class Record:
     latencies: list = dataclasses.field(default_factory=list)  # seconds per frame
     spans: dict = dataclasses.field(default_factory=dict)      # name -> [seconds]
     launches: dict = dataclasses.field(default_factory=dict)   # kernel -> [shape]
+    counters: dict = dataclasses.field(default_factory=dict)   # the driver's counts by name
     slice: dict = None        # the profiled slice (harness/trace.py summarize)
 
 
 def end_to_end_value(rec: Record, name: str):
-    """The end-to-end metrics the benchmark takes itself, on the host's clock."""
+    """The end-to-end metrics the benchmark takes itself: on the host's
+    clock here, from the profiled slice's device trace by their reader
+    ``metrics/<name>.py``."""
     if name == "setup_s":
         return rec.setup_s
-    per_s = {"frames_per_s": "frames", "ba_iters_per_s": "iters"}
-    if per_s.get(name) == rec.unit and rec.window_s > 0 and rec.units > 0:
-        return rec.units / rec.window_s
-    return None
+    if name == "frames_per_s":
+        return rec.units / rec.window_s if (
+            rec.unit == "frames" and rec.window_s > 0 and rec.units > 0) else None
+    return load_module("metrics", name).read(rec)
 
 
 def assemble(manifest: dict, cell: str, rec: Record, trace: bool) -> tuple:

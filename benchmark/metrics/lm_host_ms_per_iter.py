@@ -3,6 +3,9 @@ profiled slice."""
 
 from harness.program_spans import per_unit
 
+# the program's span this reads, after the step span that encloses it
+PROGRAM_SPANS = ("ba.lm_step",)
+
 
 def read(rec):
-    return per_unit(rec, "iters", "ba.lm_step", "total_ms")
+    return per_unit(rec, "iters", PROGRAM_SPANS[-1], "total_ms")

@@ -3,6 +3,9 @@ over the profiled slice."""
 
 from harness.program_spans import per_unit
 
+# the program's span this reads, after the step span that encloses it
+PROGRAM_SPANS = ("ba.lm_step", "ba.robust")
+
 
 def read(rec):
-    return per_unit(rec, "iters", "ba.robust", "total_ms")
+    return per_unit(rec, "iters", PROGRAM_SPANS[-1], "total_ms")

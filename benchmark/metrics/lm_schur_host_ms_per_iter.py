@@ -4,6 +4,9 @@ system's assembly and the Schur reduction, less its ``ba.resid_jac`` and
 
 from harness.program_spans import per_unit
 
+# the program's span this reads, after the step span that encloses it
+PROGRAM_SPANS = ("ba.lm_step", "ba.schur")
+
 
 def read(rec):
-    return per_unit(rec, "iters", "ba.schur", "self_ms")
+    return per_unit(rec, "iters", PROGRAM_SPANS[-1], "self_ms")

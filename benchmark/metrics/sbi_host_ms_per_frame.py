@@ -3,6 +3,9 @@ rotation) over the profiled slice."""
 
 from harness.program_spans import per_unit
 
+# the program's span this reads, after the step span that encloses it
+PROGRAM_SPANS = ("system.batch_step", "tracker.sbi")
+
 
 def read(rec):
-    return per_unit(rec, "frames", "tracker.sbi", "total_ms")
+    return per_unit(rec, "frames", PROGRAM_SPANS[-1], "total_ms")

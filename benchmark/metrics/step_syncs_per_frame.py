@@ -3,6 +3,9 @@ span over the profiled slice: what stands between the step and a CUDA graph."""
 
 from harness.program_spans import per_unit
 
+# the program's span this reads, after the step span that encloses it
+PROGRAM_SPANS = ("system.batch_step",)
+
 
 def read(rec):
-    return per_unit(rec, "frames", "system.batch_step", "syncs")
+    return per_unit(rec, "frames", PROGRAM_SPANS[-1], "syncs")

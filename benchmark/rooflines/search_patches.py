@@ -9,6 +9,8 @@ the S x S offsets (S = 2R + 1), and 22 a row of the G x S box sums."""
 KERNEL = "search_kernel"
 HOOK = ("mcptam_tpu_torch.ops.batch_patch", "find_patches")
 WSZ = 15
+# a call as shape() notes it: the fine stage's
+EXAMPLE = {"K": 1000, "R": 10}
 
 
 def shape(args, kwargs) -> dict:

@@ -6,6 +6,8 @@ solves' 2 n^2 m."""
 
 KERNEL = "spd_blocked_kernel"
 HOOK = ("mcptam_tpu_torch.ba.bundle", "spd_solve")
+# a call as shape() notes it: the BA cell's reduced camera system
+EXAMPLE = {"n": 288, "m": 1}
 
 
 def shape(args, kwargs) -> dict:

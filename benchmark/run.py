@@ -35,6 +35,7 @@ from harness.guard import forbidden_modules  # noqa: E402
 from harness.manifest import (  # noqa: E402
     cell as find_cell, load_json, load_manifest, load_module, printed_metrics,
 )
+from harness.program_spans import clear_program_trace  # noqa: E402
 from harness.result import Record, assemble, device_block, print_result  # noqa: E402
 from harness.spans import Hooks  # noqa: E402
 
@@ -95,6 +96,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         sess = driver.setup(cfg, mix, seed, dev, sync)
         sync()
         rec.setup_s = time.perf_counter() - T0
+        clear_program_trace()
         driver.window(sess, seconds, rec, hooks, trace)
         if rec.slice is not None:
             print(f"run.py: profiled slice of {rec.slice['units']} {rec.unit}: "

@@ -27,23 +27,19 @@ def card():
     return torch.device("cuda:0")
 
 
-# small sizes a CPU run can hold: 2 cameras at 240x320, a 12-corner-a-level
-# map, a 16-pose loop in batches of 4; BA over 8 poses
-SMALL = {
-    "rig4_vga_m16.track": {
-        "config": {"rig": {"n_cams": 2, "height": 240, "width": 320},
-                   "capacity": {"max_points": 1024, "max_mkfs": 8, "max_meas": 4096}},
-        "traffic": {"map": {"n_per_level": 12}, "trajectory": {"n_poses": 16}, "batch": 4,
-                    "pipeline_depth": 8, "warmup_batches": 2, "profile_batches": 1,
-                    "judge": {"batches": 1}, "gates": {"min_mean_found": 10}},
-    },
-    "rig4_vga_m48.ba": {
-        "traffic": {"problem": {"n_poses": 8, "n_points": 512, "sparse_k": 4096},
-                    "n_problems": 2, "judge": {"problems": 1}},
-    },
-}
+class SmallSizes(dict):
+    """Each cell's size for a CPU run, ``small/<cell>.json`` (overrides of
+    its configuration, traffic and limits, merged as ``run.run_cell``
+    merges them), read when a test first asks for the cell.  A cell
+    without one fails with the path of the missing file."""
+
+    def __missing__(self, cell: str) -> dict:
+        from harness.manifest import load_json
+
+        self[cell] = load_json("small", cell)
+        return self[cell]
 
 
 @pytest.fixture
 def small():
-    return SMALL
+    return SmallSizes()

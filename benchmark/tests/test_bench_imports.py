@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 
 from harness.guard import forbidden_modules
+from harness.manifest import load_json, load_manifest
 
 BENCH = Path(__file__).resolve().parent.parent
 # what the plain reference may import: the standard library's modules it
@@ -54,7 +55,8 @@ def test_the_reference_imports_nothing_of_the_program():
                 assert all(m.split(".")[0] in ALLOWED for m in mods), (p, mods)
 
 
-@pytest.mark.parametrize("driver", ["track", "ba"])
+@pytest.mark.parametrize("driver", sorted({load_json("traffic", w["traffic"])["driver"]
+                                            for w in load_manifest()["workloads"]}))
 def test_a_run_loads_no_jax(driver):
     """The harness, a driver, its metrics and the program's modules the
     driver reaches, as a run imports them."""

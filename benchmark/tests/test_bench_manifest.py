@@ -1,6 +1,7 @@
 """BENCHMARK.json against the files it names, and the metric assembly of
 every cell in both roles, fed recorded spans, counters and device events."""
 
+import importlib
 import json
 import re
 
@@ -46,6 +47,7 @@ def test_cell_files_are_found_by_name(cell):
     cfg = mf.load_json("configs", w["config"])
     mix = mf.load_json("traffic", w["traffic"])
     mf.load_json("limits", cell)
+    mf.load_json("small", cell)
     assert (mf.BENCH_DIR / "drivers" / f"{mix['driver']}.py").is_file()
     entry = next(c for c in M["configs"] if c["name"] == w["config"])
     assert entry["file"] == f"benchmark/configs/{w['config']}.json"
@@ -56,32 +58,53 @@ def test_cell_files_are_found_by_name(cell):
             assert hasattr(mf.load_module("metrics", m["name"]), "read")
 
 
-def _events(unit):
-    """Device events of a slice: the cell's kernel beside eager operators."""
-    kern = ("search_kernel(float const*, long const*)" if unit == "frames"
-            else "(anonymous namespace)::spd_blocked_kernel(float const*, float*, int, int)")
-    return [("void at::native::add_kernel<float>(int)", 0.0, 20.0),
-            (kern, 10.0, 30.0), ("Memcpy DtoH (Device -> Pinned)", 100.0, 5.0),
-            ("void at::native::add_kernel<float>(int)", 400.0, 10.0)]
+def driver_of(cell: str):
+    """The module of the cell's driver (its mix's ``driver``)."""
+    mix = mf.load_json("traffic", mf.cell(M, cell)["traffic"])
+    return importlib.import_module(f"drivers.{mix['driver']}")
 
 
-def recorded(cell: str, unit: str) -> Record:
+def metric_modules(cell: str) -> list:
+    """The readers of the cell's per-layer metrics."""
+    return [mf.load_module("metrics", m["name"]) for m in mf.cell_metrics(M, cell, "per_layer")]
+
+
+def _events(kernels) -> list:
+    """Device events of a slice: one execution of each kernel (by its
+    roofline file's ``KERNEL``) beside eager operators."""
+    ev = [("void at::native::add_kernel<float>(int)", 0.0, 20.0)]
+    ev += [(f"void (anonymous namespace)::{k}<float>(float const*, int)", 10.0 + 40.0 * i, 30.0)
+           for i, k in enumerate(kernels)]
+    t = 100.0 + 40.0 * len(kernels)
+    return ev + [("Memcpy DtoH (Device -> Pinned)", t, 5.0),
+                 ("void at::native::add_kernel<float>(int)", t + 300.0, 10.0)]
+
+
+def recorded(cell: str) -> Record:
+    """A fixed Record of a cell's run: what its metrics declare they read
+    (a hook's ``SPAN``, a ``ROOFLINE``'s example launch and its kernel's
+    execution, a driver's ``COUNTER``) and a profiled slice."""
+    unit = driver_of(cell).UNIT
     rec = Record(unit=unit, setup_s=12.5, window_s=10.0, units=60, attempted=64)
     rec.latencies = [0.1 + 0.01 * i for i in range(40)]
-    rec.spans = {"features": [0.005] * 8, "tracker": [0.12] * 8, "schur_solve": [3e-4] * 8}
-    rec.launches = ({"search_patches": [{"K": 1000, "R": 10}]} if unit == "frames"
-                    else {"spd_solve_blocked": [{"n": 288, "m": 1}]})
-    rec.slice = summarize(_events(unit), 0.002, 8, unit)
+    kernels = []
+    for mod in metric_modules(cell):
+        if hasattr(mod, "SPAN"):
+            rec.spans[mod.SPAN[0]] = [0.005] * 8
+        if hasattr(mod, "COUNTER"):
+            rec.counters[mod.COUNTER] = 3
+        if hasattr(mod, "ROOFLINE") and mod.ROOFLINE not in rec.launches:
+            rl = mf.load_module("rooflines", mod.ROOFLINE)
+            rec.launches[mod.ROOFLINE] = [rl.EXAMPLE]
+            kernels.append(rl.KERNEL)
+    rec.slice = summarize(_events(kernels), 0.002, 8, unit)
     return rec
 
 
 @pytest.mark.parametrize("trace", [False, True])
 @pytest.mark.parametrize("cell", CELLS)
 def test_assembly_yields_exactly_the_manifest(cell, trace):
-    import importlib
-    mix = mf.load_json("traffic", mf.cell(M, cell)["traffic"])
-    unit = importlib.import_module(f"drivers.{mix['driver']}").UNIT
-    metrics, missing = assemble(M, cell, recorded(cell, unit), trace)
+    metrics, missing = assemble(M, cell, recorded(cell), trace)
     want = {m["name"]: m["unit"] for m in mf.printed_metrics(M, cell, trace)}
     assert missing == []
     assert {k: v["unit"] for k, v in metrics.items()} == want
@@ -91,14 +114,14 @@ def test_assembly_yields_exactly_the_manifest(cell, trace):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_reader_with_nothing_to_read_leaves_its_metric_out(cell):
-    rec = Record(unit="frames" if "track" in cell else "iters", setup_s=1.0)
+    rec = Record(unit=driver_of(cell).UNIT, setup_s=1.0)
     metrics, missing = assemble(M, cell, rec, trace=True)
     assert list(metrics) == ["setup_s"]
     assert "setup_s" not in missing and missing
 
 
 def test_device_block_and_busy_within_window():
-    rec = recorded("x", "frames")
+    rec = recorded(CELLS[0])
     dev = device_block("NVIDIA H100 80GB HBM3", 1, 123, rec, True)
     assert set(dev) == {"platform", "kind", "count", "memory_peak_bytes", "busy_s", "window_s"}
     assert 0 < dev["busy_s"] <= dev["window_s"]
@@ -110,18 +133,22 @@ def test_device_block_and_busy_within_window():
         "platform", "kind", "count", "memory_peak_bytes"}
 
 
-def test_roofline_pairs_launches_with_executions():
+@pytest.mark.parametrize("kernel", sorted(p.stem for p in (mf.BENCH_DIR / "rooflines").glob("*.py")))
+def test_roofline_pairs_launches_with_executions(kernel):
     from harness.roofline import share_pct
-    rec = recorded("x", "frames")
-    got = share_pct(rec, "search_patches")
+    rl = mf.load_module("rooflines", kernel)
+    rec = Record(unit="frames")
+    rec.launches = {kernel: [rl.EXAMPLE]}
+    rec.slice = summarize(_events([rl.KERNEL]), 0.002, 8, "frames")
+    got = share_pct(rec, kernel)
     assert 0 < got < 100
-    rec.launches["search_patches"].append({"K": 60, "R": 8})
-    assert share_pct(rec, "search_patches") is None        # two launches, one execution
+    rec.launches[kernel].append(rl.EXAMPLE)
+    assert share_pct(rec, kernel) is None                  # two launches, one execution
 
 
 @pytest.mark.parametrize("kind,name,text", [
     ("configs", "new_cfg", '{"rig": {}}'),
-    ("traffic", "new_mix", '{"driver": "track"}'),
+    ("traffic", "new_mix", '{"driver": "any"}'),
     ("metrics", "new_metric", "def read(rec):\n    return 7.0\n"),
     ("rooflines", "new_kernel.v2", "KERNEL = 'k'\ndef count(c):\n    return 1, 2\n"),
 ])
@@ -142,7 +169,7 @@ def test_a_file_dropped_in_its_folder_is_found_by_name(tmp_path, monkeypatch, ki
 def test_smoke_checker_names_a_missing_metric():
     from smoke import check_line
     cell = CELLS[0]
-    rec = recorded(cell, "frames")
+    rec = recorded(cell)
     metrics, _ = assemble(M, cell, rec, True)
     line = {"correct": True, "attempted": 1, "failed": 0, "metrics": metrics,
             "device": device_block("k", 1, 1, rec, True)}
